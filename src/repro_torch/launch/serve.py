@@ -1,0 +1,168 @@
+"""Serving launcher: continuous batching through the port's PagedEngine.
+
+Poisson arrivals of random prompts go through the paged engine
+(admission queue, chunked prefill, TopK sparse decode over the physical
+page pool) with random weights made from ``--seed``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --requests 8 --prompt-len 1500 --gen 32 --chunk 256
+
+On the CUDA card by default (the kernels build at first use); on the CPU
+with ``--device cpu``, where the plain PyTorch versions run:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --reduced --device cpu --requests 16 --shared-prefix 4
+
+Flags of the reference launcher that belong to later slices of the port
+are recognised and rejected with the slice's name.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..device import resolve_device
+from ..params import init_params
+from ..serve.engine import KERNELS, PagedEngine
+from ..serve.scheduler import PoissonArrivals
+
+# flag -> the ROADMAP slice that ports it
+_LATER_SLICES = {
+    "--tp": "6. Tensor parallelism",
+    "--runahead": "3. Online runahead staging",
+    "--runahead-pages": "3. Online runahead staging",
+    "--capture": "3. Online runahead staging",
+    "--spill": "4. Host spill tier",
+    "--spill-compress": "4. Host spill tier",
+    "--executor": "5. Async executor and multi-turn sessions",
+    "--workload": "5. Async executor and multi-turn sessions",
+    "--session-hold": "5. Async executor and multi-turn sessions",
+    "--idle-swap": "5. Async executor and multi-turn sessions",
+    "--policy": "5. Async executor and multi-turn sessions",
+    "--expert-pool": "2. MoE expert pages",
+    "--expert-tile-rows": "2. MoE expert pages",
+    "--expert-nsb-slots": "2. MoE expert pages",
+    "--expert-runahead": "2. MoE expert pages",
+    "--expert-runahead-pages": "2. MoE expert pages",
+    "--batch": "7. The single-batch Engine and the other model families",
+    "--dense": "7. The single-batch Engine and the other model families",
+    "--no-donate": "none: PyTorch updates the pools in place",
+}
+
+
+def _fmt(x, spec: str = ".3f") -> str:
+    """Format a metric that is None before any traffic."""
+    return "n/a" if x is None else format(x, spec)
+
+
+def build_workload(cfg, args) -> list:
+    """``(tick, prompt, max_new)`` arrivals, as the reference launcher
+    builds them for its ``--continuous`` mode."""
+    rng = np.random.default_rng(args.seed)
+    if args.shared_prefix:
+        # multi-tenant shape: every request opens with one of a handful
+        # of system prompts, so whole prompt pages repeat across requests
+        sys_len = max(cfg.kv_page,
+                      args.prompt_len // 2 // cfg.kv_page * cfg.kv_page)
+        sys_prompts = [rng.integers(1, cfg.vocab, size=sys_len)
+                       for _ in range(args.shared_prefix)]
+        arrivals = PoissonArrivals(
+            args.requests, rate=args.rate,
+            prompt_len=(1, max(1, args.prompt_len - sys_len)),
+            gen_len=(max(1, args.gen // 2), args.gen), seed=args.seed)
+        return [(t, np.concatenate(
+            [sys_prompts[i % args.shared_prefix],
+             rng.integers(1, cfg.vocab, size=p)]), g)
+            for i, (t, p, g) in enumerate(arrivals)]
+    arrivals = PoissonArrivals(
+        args.requests, rate=args.rate,
+        prompt_len=(max(1, args.prompt_len // 2), args.prompt_len),
+        gen_len=(max(1, args.gen // 2), args.gen), seed=args.seed)
+    return [(t, rng.integers(1, cfg.vocab, size=p), g)
+            for t, p, g in arrivals]
+
+
+def run(cfg, params, args, device) -> PagedEngine:
+    workload = build_workload(cfg, args)
+    longest = max(len(p) + g for _, p, g in workload)
+    max_len = -(-longest // cfg.kv_page) * cfg.kv_page
+    eng = PagedEngine(cfg, params, max_len=max_len, n_pages=args.pages,
+                      max_batch=args.max_batch, chunk=args.chunk,
+                      nsb_pages=args.nsb_pages,
+                      prefix_cache=not args.no_prefix_cache,
+                      kernel=args.kernel, device=device)
+    eng.run(workload)
+    m = eng.metrics()
+    print(f"[serve-cb] {m['n_finished']}/{len(workload)} requests in "
+          f"{m['iterations']} iterations ({m['tokens_out']} tokens, "
+          f"{m['preemptions']} preemptions, peak "
+          f"{m['pages_peak_in_use']}/{eng.allocator.capacity} pages)")
+    print(f"[serve-cb] step loop: {m['decode_steps']} decode steps, "
+          f"{m['prefill_calls']} prefill chunks ({eng.kernel} kernel on "
+          f"{eng.device}), {m['decode_rows_padded']} padded decode rows")
+    print(f"[serve-cb] latency p50/p99 {_fmt(m['p50_latency'], '.0f')}/"
+          f"{_fmt(m['p99_latency'], '.0f')} iters; TTFT p50/p99 "
+          f"{_fmt(m['p50_ttft'], '.0f')}/{_fmt(m['p99_ttft'], '.0f')}; "
+          f"TPOT p50/p99 {_fmt(m['p50_tpot'], '.2f')}/"
+          f"{_fmt(m['p99_tpot'], '.2f')}")
+    print(f"[serve-cb] NSB hot-set hit rate "
+          f"{_fmt(m['nsb_hot_hit_rate'])}")
+    if not args.no_prefix_cache:
+        print(f"[serve-cb] prefix cache: {m['prefix_hit_pages']} page "
+              f"hits, {m['prefill_tokens_skipped']} prompt tokens "
+              f"skipped ({m['prefill_tokens_run']} run), "
+              f"{m['cow_copies']} COW copies, "
+              f"{m['prefix_evictions']} evictions")
+    return eng
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True)
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--requests", type=int, default=16)
+    p.add_argument("--rate", type=float, default=0.5,
+                   help="Poisson arrivals per scheduler iteration")
+    p.add_argument("--prompt-len", type=int, default=64)
+    p.add_argument("--gen", type=int, default=32)
+    p.add_argument("--pages", type=int, default=0,
+                   help="physical KV pages (0 = worst-case sized)")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--chunk", type=int, default=16,
+                   help="prefill chunk tokens per iteration")
+    p.add_argument("--nsb-pages", type=int, default=64)
+    p.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                   help="draw prompts over N shared system prompts")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable cross-request COW prefix caching")
+    p.add_argument("--kernel", choices=KERNELS, default="cuda",
+                   help="attention: cuda = the port's kernels (plain "
+                        "versions for CPU tensors); torch = the plain "
+                        "versions everywhere")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights and the workload")
+    for flag in _LATER_SLICES:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, slice_name in _LATER_SLICES.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            p.error(f"{flag} is not ported yet (ROADMAP slice: "
+                    f"{slice_name})")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(cfg, gen, device)
+    return run(cfg, params, args, device)
+
+
+if __name__ == "__main__":
+    main()

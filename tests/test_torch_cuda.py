@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each test skips (inside its fixture) where no card is
+present.  On a machine with one:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 outputs 1e-5 (both sides accumulate in float32, in
+another order); bfloat16 outputs 1e-2 absolute plus relative (one
+bfloat16 rounding of a float32 result that differs in its last bits can
+move by one bfloat16 step, 2**-8 relative).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+from repro_torch.models.layers import chunked_attention
+from repro_torch.models.sparse_attention import (attend_pages_paged,
+                                                 kv_quant,
+                                                 select_pages_blocktable)
+from repro_torch.params import init_params
+from repro_torch.serve.engine import PagedEngine
+
+pytestmark = pytest.mark.cuda
+
+_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+       "int8": torch.int8}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 1e-2
+
+
+def _decode_inputs(dev, r, kv, g, d, k_sel, page, pool_dtype, seed=0,
+                   n_logical=8, n_pages=40):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q_dtype = torch.float32 if pool_dtype == "float32" else torch.bfloat16
+    shape = (n_pages, page, kv, d)
+    kp = kv_quant(torch.randn(shape, generator=gen, device=dev),
+                  _DT[pool_dtype])
+    vp = kv_quant(torch.randn(shape, generator=gen, device=dev),
+                  _DT[pool_dtype])
+    spool = torch.randn((n_pages, kv, d), generator=gen, device=dev)
+    bt = torch.stack([torch.randperm(n_pages - 1, generator=gen,
+                                     device=dev)[:n_logical] + 1
+                      for _ in range(r)])
+    pos = torch.randint(page, n_logical * page, (r,), generator=gen,
+                        device=dev)
+    pos[0] = page // 2                           # NULL-padded selection
+    bt[-1], pos[-1] = 0, 0                       # padded batch row
+    pos = pos.to(torch.int32)
+    q = torch.randn((r, kv, g, d), generator=gen, device=dev).to(q_dtype)
+    idx, phys = select_pages_blocktable(q, spool, bt, pos // page + 1,
+                                        k_sel)
+    return phys, idx, pos, q, kp, vp
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("page,r,kv,g,d,k_sel", [
+    (8, 4, 2, 2, 32, 4), (16, 3, 2, 6, 128, 5), (16, 3, 1, 1, 64, 2),
+    (4, 4, 2, 2, 32, 4)])
+def test_paged_decode_kernel_matches_plain(dev, pool_dtype, page, r, kv, g,
+                                           d, k_sel):
+    phys, idx, pos, q, kp, vp = _decode_inputs(dev, r, kv, g, d, k_sel,
+                                               page, pool_dtype)
+    n = paged_decode_attn.launches
+    got = paged_decode_attn(phys, idx, pos, q, kp, vp, page_size=page)
+    torch.cuda.synchronize()
+    assert paged_decode_attn.launches == n + 1
+    want = attend_pages_paged(q, kp, vp, idx, phys, pos, page)
+    tol = _tol(q.dtype)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_paged_decode_kernel_rejects_what_it_does_not_take(dev):
+    phys, idx, pos, q, kp, vp = _decode_inputs(dev, 2, 2, 2, 32, 3, 8,
+                                               "float32")
+    with pytest.raises(TypeError):
+        paged_decode_attn(phys.long(), idx, pos, q, kp, vp, page_size=8)
+    with pytest.raises(ValueError):
+        paged_decode_attn(phys, idx, pos, q, kp, vp, page_size=4)
+    with pytest.raises(ValueError):
+        paged_decode_attn(phys, idx, pos, q.transpose(2, 3), kp, vp,
+                          page_size=8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("sq,sk,h,kv,d,q_offset", [
+    (16, 16, 4, 2, 32, 0), (37, 53, 6, 2, 64, 16), (5, 100, 12, 2, 128, 95),
+    (20, 20, 4, 1, 32, 0), (33, 64, 4, 4, 128, 0)])
+def test_flash_prefill_kernel_matches_plain(dev, dtype, sq, sk, h, kv, d,
+                                            q_offset):
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    q_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = torch.randn((2, sq, h, d), generator=gen, device=dev).to(q_dtype)
+    k, v = (kv_quant(torch.randn((2, sk, kv, d), generator=gen,
+                                 device=dev), _DT[dtype]) for _ in range(2))
+    n = flash_prefill.launches
+    got = flash_prefill(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == n + 1
+    want = chunked_attention(q, k, v, q_offset=q_offset, chunk=32)
+    tol = _tol(q_dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_prefill_kernel_refuses_softcap(dev):
+    q = torch.randn((1, 4, 2, 32), device=dev)
+    with pytest.raises(NotImplementedError):
+        flash_prefill(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous(),
+                      logit_softcap=30.0)
+
+
+def test_reduced_engine_card_matches_cpu(dev):
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    work = [(0.5 * i, rng.integers(1, cfg.vocab, size=int(n)), 6)
+            for i, n in enumerate(rng.integers(5, 30, size=6))]
+    engines = []
+    for device in ("cuda", "cpu"):
+        eng = PagedEngine(cfg, params, max_len=48, max_batch=4, chunk=8,
+                          device=device)
+        eng.run([(t, p.copy(), g) for t, p, g in work])
+        engines.append(eng)
+    for rid, a in engines[0].requests.items():
+        b = engines[1].requests[rid]
+        assert a.out_tokens == b.out_tokens
+        np.testing.assert_allclose(a.last_logits, b.last_logits, rtol=1e-4,
+                                   atol=1e-4)
