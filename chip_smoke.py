@@ -9,7 +9,7 @@ Phases (any failure makes the exit code non-zero and suppresses the
 final result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. both CUDA kernels built from ``src/repro_torch/kernels/csrc`` with
+2. every CUDA kernel built from ``src/repro_torch/kernels/csrc`` with
    ``nvcc -Xptxas -v`` (registers, shared memory, spills printed);
 3. each kernel against its plain PyTorch version at the serve path's
    shapes, with times (CUDA events), the plain version's time, the
@@ -24,7 +24,21 @@ final result line):
    inputs of one step go to the kernel and to the plain version;
 6. full width in float32, first decode step, ``kernel="cuda"`` against
    ``kernel="torch"``: TopK selections and logits;
-7. reduced qwen2-1.5b in float32: the card against the CPU.
+7. reduced qwen2-1.5b in float32: the card against the CPU;
+8. the MoE kernels against their plain versions at qwen3-moe-235b-a22b's
+   decode shapes in bfloat16 and float32, timed beside their bound, the
+   plain versions and a ``torch.bmm`` over weights gathered beforehand;
+   the attention kernels again at qwen3-moe's head shapes;
+9. the MoE path: ``PagedEngine(expert_pool="paged")`` serving the same
+   8 requests on qwen3-moe-235b-a22b at full width, cut to 8 layers,
+   in bfloat16 — all four kernels' launches, decode and prefill rates,
+   expert hit rates, the host time of the expert-page accounting, peak
+   memory and one profiled decode step;
+10. teacher-forced per-layer check of the MoE kernels in all 8 layers;
+11. 2 layers at full width in float32: ``kernel="cuda"`` against
+    ``"torch"`` (routed experts and logits), and dense against paged
+    experts with ``kernel="torch"`` (bitwise);
+12. reduced qwen3-moe in float32 with paged experts: card against CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_JSON=<path>`` in
@@ -55,8 +69,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # serve-path shapes of qwen2-1.5b (full width)
 N_REQ, PROMPT, GEN, CHUNK = 8, 1500, 32, 256
 
+# the MoE path: qwen3-moe-235b-a22b at full width, cut to 8 layers (one
+# card holds 8 layers of experts: 38.7 GB in bfloat16)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
+
 DECODE_TPU = "src/repro/kernels/paged_decode_attn.py:129"
 PREFILL_TPU = "src/repro/kernels/flash_prefill.py:106"
+GATEUP_TPU = "src/repro/kernels/moe_dispatch.py:147"
+DOWN_TPU = "src/repro/kernels/moe_dispatch.py:213"
 
 record: dict = {"phases": {}}
 failures: list[str] = []
@@ -79,6 +99,16 @@ def run_phase(name: str, fn) -> None:
     dt = time.perf_counter() - t0
     record["phases"][name] = {"ok": ok, "seconds": dt}
     log(f"== phase {name}: {'ok' if ok else 'FAILED'} ({dt:.1f} s)")
+
+
+def free_cuda() -> None:
+    """Free the card memory that dropped objects held, reference cycles
+    included, and hand the cached blocks back to the device."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -352,26 +382,18 @@ def profile_step(eng) -> dict:
             "top": [{"name": n[:90], "ms": us / 1e3} for n, us in top]}
 
 
-def phase_serve(state: dict) -> None:
+def drive_serve(eng, work, kernels: dict) -> dict:
+    """Serve ``work`` to the end, one timed ``eng.step()`` at a time, and
+    profile one decode-only step.  Every kernel's launch count is set to
+    0 just before and read just after."""
     import numpy as np
     import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_prefill import flash_prefill
-    from repro_torch.kernels.paged_decode_attn import paged_decode_attn
-    from repro_torch.params import init_params
-    cfg = get_config("qwen2-1.5b")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(cfg, gen, "cuda")
-    state.update(cfg=cfg, params=params)
-    eng = full_engine(cfg, params, kernel="cuda")
-    work = serve_workload(cfg)
     for t, p, g in work:
         eng.submit(p, g, arrival=t)
     torch.cuda.synchronize()
     decode_s, prefill_s, profiled = [], 0.0, None
-    paged_decode_attn.launches = 0
-    flash_prefill.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t_run = time.perf_counter()
     while eng.scheduler.has_work:
         sch = eng.scheduler
@@ -391,8 +413,43 @@ def phase_serve(state: dict) -> None:
         elif n_d:
             decode_s.append(dt)
     run_s = time.perf_counter() - t_run
-    launches = {"paged_decode_attn": paged_decode_attn.launches,
-                "flash_prefill": flash_prefill.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    ms = np.asarray(decode_s) * 1e3
+    return {"launches": launches, "run_s": run_s, "decode_ms": ms,
+            "prefill_s": prefill_s, "profiled": profiled}
+
+
+def log_profile(tag: str, profiled) -> None:
+    if profiled and profiled["busy_share"] is not None:
+        log(f"[{tag}] profiled decode step: wall {profiled['wall_ms']:.2f} "
+            f"ms, device busy {profiled['device_ms']:.2f} ms = "
+            f"{100 * profiled['busy_share']:.1f}% over "
+            f"{profiled['n_kernels']} kernels; top by device time:")
+        for t in profiled["top"]:
+            log(f"[{tag}]   {t['ms']:.3f} ms  {t['name']}")
+    else:
+        log(f"[{tag}] device busy share: not measured (the profiler "
+            "recorded no device events)")
+
+
+def phase_serve(state: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+    from repro_torch.params import init_params
+    cfg = get_config("qwen2-1.5b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, "cuda")
+    state.update(cfg=cfg, params=params)
+    eng = full_engine(cfg, params, kernel="cuda")
+    work = serve_workload(cfg)
+    run = drive_serve(eng, work, {"paged_decode_attn": paged_decode_attn,
+                                  "flash_prefill": flash_prefill})
+    launches, run_s, ms = run["launches"], run["run_s"], run["decode_ms"]
+    prefill_s, profiled = run["prefill_s"], run["profiled"]
     state["launches"] = launches
     m = eng.metrics()
     st = eng.stats
@@ -403,7 +460,6 @@ def phase_serve(state: dict) -> None:
         f"requests finished, {m['tokens_out']} tokens, {st.steps} decode "
         f"steps, {st.prefill_calls} prefill chunks, {m['iterations']} "
         f"iterations in {run_s:.2f} s")
-    ms = np.asarray(decode_s) * 1e3
     log(f"[serve] decode-only steps: {len(ms)}, ms/step mean "
         f"{ms.mean():.2f} median {np.median(ms):.2f}; prefill "
         f"{st.prefill_tokens} tokens in {prefill_s:.2f} s of iterations "
@@ -420,16 +476,7 @@ def phase_serve(state: dict) -> None:
     log(f"[serve] NSB hit rate {m['nsb_hot_hit_rate']}: each decode step "
         f"touches {per_step:.1f} unique layer-0 pages on average against a "
         f"{eng.hot.capacity}-page LRU, {why}")
-    if profiled and profiled["busy_share"] is not None:
-        log(f"[serve] profiled decode step: wall {profiled['wall_ms']:.2f} "
-            f"ms, device busy {profiled['device_ms']:.2f} ms = "
-            f"{100 * profiled['busy_share']:.1f}% over "
-            f"{profiled['n_kernels']} kernels; top by device time:")
-        for t in profiled["top"]:
-            log(f"[serve]   {t['ms']:.3f} ms  {t['name']}")
-    else:
-        log("[serve] device busy share: not measured (the profiler "
-            "recorded no device events)")
+    log_profile("serve", profiled)
     record["serve"] = {
         "finished": done, "tokens": m["tokens_out"],
         "decode_steps": st.steps, "prefill_chunks": st.prefill_calls,
@@ -564,14 +611,15 @@ def phase_f32_topk(state: dict) -> None:
 
 # -- phase 7 -------------------------------------------------------------------
 
-def phase_reduced_cpu() -> None:
+def phase_reduced_cpu(arch: str = "qwen2-1.5b", key: str = "reduced_cpu",
+                      **engine_kw) -> None:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.params import init_params
     from repro_torch.serve.engine import PagedEngine
-    cfg = get_config("qwen2-1.5b").reduced()
+    cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(3)
     sys_prompts = [rng.integers(1, cfg.vocab, size=12) for _ in range(2)]
@@ -582,7 +630,7 @@ def phase_reduced_cpu() -> None:
     engines = {}
     for dev in ("cuda", "cpu"):
         eng = PagedEngine(cfg, params, max_len=48, max_batch=4, chunk=8,
-                          nsb_pages=32, device=dev)
+                          nsb_pages=32, device=dev, **engine_kw)
         eng.run([(t, p.copy(), g) for t, p, g in work])
         engines[dev] = eng
     worst = 0.0
@@ -592,12 +640,431 @@ def phase_reduced_cpu() -> None:
         same &= a.out_tokens == b.out_tokens
         worst = max(worst, float(np.max(np.abs(a.last_logits - b.last_logits)
                                         / (1 + np.abs(b.last_logits)))))
-    log(f"[reduced] qwen2-1.5b reduced f32, card (kernels) vs CPU (plain): "
-        f"tokens equal {same}, max |logit diff| / (1 + |logit|) "
+    opts = "".join(f", {k}={v}" for k, v in engine_kw.items())
+    log(f"[reduced] {arch} reduced f32{opts}, card (kernels) vs CPU "
+        f"(plain): tokens equal {same}, max |logit diff| / (1 + |logit|) "
         f"{worst:.3e} (limit 1e-4)")
-    record["reduced_cpu"] = {"tokens_equal": same, "max_rel_err": worst}
+    record[key] = {"tokens_equal": same, "max_rel_err": worst}
     assert same, "tokens differ between card and CPU"
     assert worst <= 1e-4
+
+
+# -- MoE phases: qwen3-moe-235b-a22b ------------------------------------------
+
+def moe_config(n_layers: int = MOE_LAYERS, dtype: str = "bfloat16"):
+    from repro_torch.configs import get_config
+    return replace(get_config(MOE_ARCH), n_layers=n_layers,
+                   param_dtype=dtype)
+
+
+def moe_case(gen, dtype, R=N_REQ, K=8, E=128, TF=32, D=4096, F=1536):
+    """One layer's expert pool in the engine's layout (page 0 = zeros,
+    page 1 + ((e*3 + plane)*NT + t)) with weights of std D**-0.5, and
+    one decode step's routing drawn from ``gen``: each row routes to K
+    distinct experts."""
+    import torch
+    nt = F // TF
+    n_pages = 1 + E * 3 * nt
+    pool = torch.empty((n_pages, TF, D), dtype=dtype, device="cuda")
+    for a in range(0, n_pages, 2048):
+        b = min(n_pages, a + 2048)
+        pool[a:b] = torch.randn((b - a, TF, D), generator=gen,
+                                device="cuda") * D ** -0.5
+    pool[0] = 0
+    eids = torch.stack([torch.randperm(E, generator=gen, device="cuda")[:K]
+                        for _ in range(R)])                    # [R,K]
+    t = torch.arange(nt, device="cuda")
+
+    def pids(plane):
+        return (1 + (eids[..., None] * 3 + plane) * nt + t).to(
+            torch.int32).contiguous()
+    x = torch.randn((R, D), generator=gen, device="cuda").to(dtype)
+    h = torch.randn((R, K, F), generator=gen, device="cuda").to(dtype)
+    return dict(pool=pool, gate=pids(0), down=pids(2), x=x, h=h, eids=eids)
+
+
+def moe_bound(pids, a, pool, out_numel) -> tuple[float, str, dict]:
+    """Least time of one call on this data: the unique pages it reads,
+    x or h, the page ids and the output, each moved once; two flops per
+    weight of every routed (row, expert) pair."""
+    import torch
+    r, k, nt = pids.shape
+    _, tf, d = pool.shape
+    n_pages = int(torch.unique(pids).numel())
+    item = pool.element_size()
+    nbytes = (n_pages * tf * d * item + a.numel() * a.element_size()
+              + pids.numel() * 4 + out_numel * a.element_size())
+    flops = 2 * r * k * nt * tf * d
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype_name(a.dtype)] * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), {
+        "bytes": nbytes, "flops": flops, "pages_read": n_pages}
+
+
+def close_enough(got, want, tol) -> tuple[float, bool]:
+    import torch
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= tol + tol * want.abs()).all())
+    return err, ok
+
+
+def phase_moe_kernels() -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.moe_dispatch import (moe_paged_down,
+                                                  moe_paged_down_plain,
+                                                  moe_paged_gateup,
+                                                  moe_paged_gateup_plain)
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+    from repro_torch.models.layers import chunked_attention
+    from repro_torch.models.sparse_attention import attend_pages_paged
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bad = []
+    shape = "R=8 K=8 E=128 tile=32 D=4096 NT=48"
+    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        c = moe_case(gen, dt)
+        pool, x, h = c["pool"], c["x"], c["h"]
+        g_args, d_args = (c["gate"], x, pool), (c["down"], h, pool)
+        g = moe_paged_gateup(*g_args)
+        y = moe_paged_down(*d_args)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in (
+                ("moe_paged_gateup", g, moe_paged_gateup_plain(*g_args)),
+                ("moe_paged_down", y, moe_paged_down_plain(*d_args))):
+            err, ok = close_enough(got, want, tol)
+            errs[name] = err
+            log(f"[{name}] {dtype_name(dt)} {shape}: max |err| {err:.3e} "
+                f"(tolerance {tol:g} abs + {tol:g} rel) "
+                f"{'ok' if ok else 'FAIL'}")
+            record.setdefault("moe_checks", []).append(
+                {"kernel": name, "dtype": dtype_name(dt), "max_abs_err": err,
+                 "tol": tol, "ok": ok})
+            if not ok:
+                bad.append(f"{name} {dtype_name(dt)}")
+        # the yardstick: one batched product over weights gathered
+        # beforehand (the gather itself is left out of its time)
+        r, k, nt = c["gate"].shape
+        wg = pool[c["gate"].long()].reshape(r * k, -1, pool.shape[-1])
+        wd = pool[c["down"].long()].reshape(r * k, -1, pool.shape[-1])
+        xk = x[:, None, :, None].expand(r, k, -1, 1).reshape(r * k, -1, 1)
+        hk = h.reshape(r * k, 1, -1)
+        timed = (
+            ("moe_paged_gateup", g_args, moe_paged_gateup,
+             moe_paged_gateup_plain, lambda: torch.bmm(wg, xk), g.numel()),
+            ("moe_paged_down", d_args, moe_paged_down, moe_paged_down_plain,
+             lambda: torch.bmm(hk, wd), y.numel()))
+        for name, args, kern, plain, bmm, n_out in timed:
+            bound, by, work = moe_bound(args[0], args[1], pool, n_out)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=10)
+            k_ms = cuda_ms(lambda: kern(*args))
+            bmm_ms = cuda_ms(bmm)
+            plain_ms2 = cuda_ms(lambda: plain(*args), iters=10)
+            row = dict(ms=k_ms, plain_ms=min(plain_ms, plain_ms2),
+                       bound_ms=bound, bound_by=by, library_ms=None,
+                       bmm_pregathered_ms=bmm_ms, work=work,
+                       max_abs_err=errs[name], dtype=dtype_name(dt))
+            record.setdefault(name + "_runs", []).append(row)
+            if dt == torch.bfloat16:
+                record[name] = row
+            log(f"[{name}] {dtype_name(dt)} {shape}: kernel {k_ms:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, bound {bound:.5f} ms "
+                f"({by}: {work}); library: none (no single PyTorch call "
+                f"gathers pages through a page table); yardstick "
+                f"torch.bmm over weights gathered beforehand, gather "
+                f"excluded: {bmm_ms:.4f} ms")
+        del c, pool, wg, wd, g_args, d_args, timed
+        torch.cuda.empty_cache()
+
+    # the attention kernels again at qwen3-moe's head shapes
+    for pool_dt, q_dt, tol in ((torch.bfloat16, torch.bfloat16, 1e-2),
+                               (torch.float32, torch.float32, 1e-5)):
+        c = decode_case(gen, pool_dt, q_dt, KV=4, G=16)
+        args = (c["phys"], c["idx"], c["pos"], c["q"], c["kp"][0],
+                c["vp"][0])
+        got = paged_decode_attn(*args, page_size=c["page"])
+        torch.cuda.synchronize()
+        want = attend_pages_paged(c["q"], c["kp"][0], c["vp"][0], c["idx"],
+                                  c["phys"], c["pos"], c["page"])
+        err, ok = close_enough(got, want, tol)
+        log(f"[paged_decode_attn] qwen3-moe KV=4 G=16 pool "
+            f"{dtype_name(pool_dt)}: max |err| {err:.3e} (tolerance {tol:g} "
+            f"abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
+        record.setdefault("moe_attn_checks", []).append(
+            {"kernel": "paged_decode_attn", "dtype": dtype_name(pool_dt),
+             "max_abs_err": err, "ok": ok})
+        if not ok:
+            bad.append(f"paged_decode_attn qwen3 {dtype_name(pool_dt)}")
+    c = decode_case(gen, torch.bfloat16, torch.bfloat16, n_layers=8, KV=4,
+                    G=16)
+    layers = itertools.cycle(range(8))
+
+    def kern():
+        li = next(layers)
+        paged_decode_attn(c["phys"], c["idx"], c["pos"], c["q"], c["kp"][li],
+                          c["vp"][li], page_size=c["page"])
+
+    def plain():
+        li = next(layers)
+        attend_pages_paged(c["q"], c["kp"][li], c["vp"][li], c["idx"],
+                           c["phys"], c["pos"], c["page"])
+    bound, by, work = decode_bound(c, torch.bfloat16)
+    p1, k_ms, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(plain)
+    record["paged_decode_attn_qwen3"] = dict(
+        ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+        library_ms=None, work=work)
+    log(f"[paged_decode_attn] qwen3-moe bf16 R=8 KV=4 G=16 D=128 page=16 "
+        f"K=64: kernel {k_ms:.4f} ms, plain {min(p1, p2):.4f} ms, bound "
+        f"{bound:.5f} ms ({by}: {work})")
+    del c
+    sk = -(-(PROMPT + GEN) // 16) * 16
+    off = sk - CHUNK
+    for q_dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 2e-5)):
+        q = torch.randn((1, CHUNK, 64, 128), generator=gen,
+                        device="cuda").to(q_dt)
+        k = torch.randn((1, sk, 4, 128), generator=gen, device="cuda").to(q_dt)
+        v = torch.randn((1, sk, 4, 128), generator=gen, device="cuda").to(q_dt)
+        got = flash_prefill(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+        want = chunked_attention(q, k, v, q_offset=off, chunk=min(1024, sk))
+        err, ok = close_enough(got, want, tol)
+        log(f"[flash_prefill] qwen3-moe H=64 KV=4 {dtype_name(q_dt)} "
+            f"q_offset={off}: max |err| {err:.3e} (tolerance {tol:g} abs + "
+            f"{tol:g} rel) {'ok' if ok else 'FAIL'}")
+        record.setdefault("moe_attn_checks", []).append(
+            {"kernel": "flash_prefill", "dtype": dtype_name(q_dt),
+             "max_abs_err": err, "ok": ok})
+        if not ok:
+            bad.append(f"flash_prefill qwen3 {dtype_name(q_dt)}")
+        if q_dt == torch.bfloat16:
+            main = (q, k, v)
+    q, k, v = main
+    mask = (torch.arange(sk, device="cuda")[None, :]
+            <= off + torch.arange(CHUNK, device="cuda")[:, None])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound, by, work = prefill_bound(q, k, off)
+    p1 = cuda_ms(lambda: chunked_attention(q, k, v, q_offset=off,
+                                           chunk=min(1024, sk)))
+    k_ms = cuda_ms(lambda: flash_prefill(q, k, v, q_offset=off))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    p2 = cuda_ms(lambda: chunked_attention(q, k, v, q_offset=off,
+                                           chunk=min(1024, sk)))
+    record["flash_prefill_qwen3"] = dict(
+        ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+        library_ms=lib_ms, work=work)
+    log(f"[flash_prefill] qwen3-moe bf16 B=1 Sq={CHUNK} Sk={sk} H=64 KV=4 "
+        f"D=128 q_offset={off}: kernel {k_ms:.4f} ms, plain "
+        f"{min(p1, p2):.4f} ms, bound {bound:.5f} ms ({by}: {work}), "
+        f"library scaled_dot_product_attention {lib_ms:.4f} ms")
+    if bad:
+        raise AssertionError(f"kernel disagrees with plain: {bad}")
+
+
+def moe_kernels() -> dict:
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.moe_dispatch import (moe_paged_down,
+                                                  moe_paged_gateup)
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+    return {"paged_decode_attn": paged_decode_attn,
+            "flash_prefill": flash_prefill,
+            "moe_paged_gateup": moe_paged_gateup,
+            "moe_paged_down": moe_paged_down}
+
+
+def phase_moe_serve(state: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.params import init_params
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    eng = full_engine(cfg, params, kernel="cuda", expert_pool="paged")
+    ptr = params["layers"]["we_down"].untyped_storage().data_ptr()
+    one_copy = (eng.ep.pool.untyped_storage().data_ptr() == ptr
+                and eng.params["layers"]["we_down"].untyped_storage()
+                .data_ptr() == ptr)
+    account_s = []
+    account = eng._account_expert_pages
+
+    def timed_account(es, occ):
+        t = time.perf_counter()
+        account(es, occ)
+        account_s.append(time.perf_counter() - t)
+    eng._account_expert_pages = timed_account
+    work = serve_workload(cfg)
+    run = drive_serve(eng, work, moe_kernels())
+    launches, ms = run["launches"], run["decode_ms"]
+    state["moe_launches"] = launches
+    m = eng.metrics()
+    st = eng.stats
+    L = cfg.n_layers
+    done = sum(len(r.out_tokens) == r.max_new_tokens
+               for r in eng.requests.values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[moe serve] {MOE_ARCH} full width, {L} layers, bf16, "
+        f"expert_pool=paged, kernel=cuda: weights {weights_gib:.2f} GiB made "
+        f"in {init_s:.1f} s, expert pool {m['expert_pool_mib'] / 1024:.2f} "
+        f"GiB as a view of the weights: {one_copy}")
+    log(f"[moe serve] {done}/{N_REQ} requests finished, {m['tokens_out']} "
+        f"tokens, {st.steps} decode steps, {st.prefill_calls} prefill "
+        f"chunks, {m['iterations']} iterations in {run['run_s']:.2f} s")
+    log(f"[moe serve] decode-only steps: {len(ms)}, ms/step mean "
+        f"{ms.mean():.2f} median {np.median(ms):.2f}; prefill "
+        f"{st.prefill_tokens} tokens in {run['prefill_s']:.2f} s of "
+        f"iterations with prefill = "
+        f"{st.prefill_tokens / run['prefill_s']:.0f} tokens/s")
+    log(f"[moe serve] launches: moe_paged_gateup "
+        f"{launches['moe_paged_gateup']} (decode steps x 2 x {L} = "
+        f"{st.steps * 2 * L}), moe_paged_down {launches['moe_paged_down']} "
+        f"({st.steps * L}), paged_decode_attn "
+        f"{launches['paged_decode_attn']} ({st.steps * L}), flash_prefill "
+        f"{launches['flash_prefill']} (prefill chunks x {L} = "
+        f"{st.prefill_calls * L})")
+    acc = np.asarray(account_s) * 1e3
+    log(f"[moe serve] expert pages: {st.expert_pages_touched} unique-per-"
+        f"step touches ({st.expert_pages_touched / max(st.steps, 1):.0f} a "
+        f"step), hit rate {m['expert_nsb_hit_rate']} (demand-LRU of "
+        f"{eng.ep_hot.capacity} pages: {m['expert_demand_lru_hit_rate']}); "
+        f"_account_expert_pages host time {acc.mean():.2f} ms/step mean, "
+        f"{acc.max():.2f} max")
+    log(f"[moe serve] peak device memory {peak:.2f} GiB (set-up included)")
+    log_profile("moe serve", run["profiled"])
+    record["moe_serve"] = {
+        "layers": L, "finished": done, "tokens": m["tokens_out"],
+        "decode_steps": st.steps, "prefill_chunks": st.prefill_calls,
+        "iterations": m["iterations"], "run_s": run["run_s"],
+        "init_s": init_s, "weights_gib": weights_gib,
+        "decode_ms_mean": float(ms.mean()),
+        "decode_ms_median": float(np.median(ms)),
+        "decode_steps_timed": len(ms),
+        "prefill_tokens": st.prefill_tokens,
+        "prefill_tokens_per_s": st.prefill_tokens / run["prefill_s"],
+        "launches": launches,
+        "expert_pages_touched": st.expert_pages_touched,
+        "expert_hit_rate": m["expert_nsb_hit_rate"],
+        "expert_demand_lru_hit_rate": m["expert_demand_lru_hit_rate"],
+        "account_ms_mean": float(acc.mean()),
+        "account_ms_max": float(acc.max()),
+        "nsb_hit_rate": m["nsb_hot_hit_rate"], "profile": run["profiled"],
+        "max_memory_gib": peak, "pool_is_weights_view": one_copy}
+    assert one_copy, "the expert pool is not a view of the weights"
+    assert done == N_REQ, f"{done}/{N_REQ} requests finished"
+    assert launches["moe_paged_gateup"] == 2 * st.steps * L
+    assert launches["moe_paged_down"] == st.steps * L
+    assert launches["paged_decode_attn"] == st.steps * L
+    assert launches["flash_prefill"] == st.prefill_calls * L
+    assert all(np.isfinite(r.last_logits).all()
+               for r in eng.requests.values())
+    assert peak < 80
+    state["moe_engine"] = eng
+    state["moe_work"] = work
+
+
+def phase_moe_teacher_forced(state: dict) -> None:
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import (moe_paged_down_plain,
+                                                  moe_paged_gateup_plain)
+    eng = state["moe_engine"]
+    pool = eng.ep.pool
+    tol = 1e-2
+    errs: dict[int, float] = {}
+    fails = []
+
+    def probe(li, p):
+        pids = p["pids"]
+        checks = (
+            (p["g"], moe_paged_gateup_plain(pids[:, :, 0].contiguous(),
+                                            p["x"], pool)),
+            (p["u"], moe_paged_gateup_plain(pids[:, :, 1].contiguous(),
+                                            p["x"], pool)),
+            (p["y"], moe_paged_down_plain(pids[:, :, 2].contiguous(),
+                                          p["h"], pool)))
+        for got, want in checks:
+            err, ok = close_enough(got, want, tol)
+            errs[li] = max(errs.get(li, 0.0), err)
+            if not ok:
+                fails.append(li)
+    eng.moe_probe = probe
+    try:
+        eng.run([(eng.now, p, 2) for _, p, _ in state["moe_work"]])
+    finally:
+        eng.moe_probe = None
+    torch.cuda.synchronize()
+    log(f"[moe teacher-forced] bf16 full width: {len(errs)} layers checked "
+        f"(gate, up and down of every decode step), max |kernel - plain| "
+        f"per layer {[round(errs[i], 5) for i in sorted(errs)]} (tolerance "
+        f"{tol:g} abs + {tol:g} rel)")
+    record["moe_teacher_forced"] = {"max_abs_err": errs, "tol": tol,
+                                    "failed_layers": sorted(set(fails))}
+    assert len(errs) == eng.cfg.n_layers, "not every layer checked"
+    assert not fails, f"layers {sorted(set(fails))} disagree"
+
+
+def phase_moe_f32(state: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.params import init_params
+    cfg = moe_config(n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         "cuda")
+    max_len = -(-(PROMPT + GEN) // cfg.kv_page) * cfg.kv_page
+    runs = {}
+    for name, kernel, mode in (("cuda", "cuda", "paged"),
+                               ("torch", "torch", "paged"),
+                               ("dense", "torch", "dense")):
+        eng = full_engine(cfg, params, kernel=kernel, expert_pool=mode,
+                          chunk=max_len, token_budget=N_REQ * max_len + N_REQ)
+        esel = []
+        commit = eng._commit_decode
+
+        def keep(pairs, logits, sel, rb, es=None, esel=esel, commit=commit):
+            esel.append((es.cpu().numpy()[:, [s for s, _ in pairs]]))
+            return commit(pairs, logits, sel, rb, es)
+        eng._commit_decode = keep
+        # every prompt prefills in one chunk, so all rows decode together
+        eng.run([(0.0, p, 2) for _, p, _ in state["moe_work"]])
+        assert eng.stats.steps == 1
+        logits = np.stack([eng.requests[i].last_logits
+                           for i in sorted(eng.requests)])
+        toks = [eng.requests[i].out_tokens for i in sorted(eng.requests)]
+        runs[name] = (esel[0], logits, toks)
+        del eng
+        torch.cuda.empty_cache()
+    (ec, lc, tc), (et, lt, tt), (ed, ld, td) = (runs[k] for k in
+                                                ("cuda", "torch", "dense"))
+    n_diff = int((np.sort(ec, -1) != np.sort(et, -1)).any(-1).sum())
+    rel = float(np.linalg.norm(lc - lt) / np.linalg.norm(lt))
+    bitwise = bool(np.array_equal(ld, lt) and td == tt
+                   and np.array_equal(ed, et))
+    n_sets = ec.shape[0] * ec.shape[1]
+    log(f"[moe f32] {MOE_ARCH} full width, 2 layers, f32, first decode "
+        f"step: kernel=cuda vs kernel=torch: {n_diff} of {n_sets} "
+        f"(layer, row) routed expert sets differ, logits "
+        f"relative L2 {rel:.3e} (limit 1e-4), tokens equal {tc == tt}; "
+        f"kernel=torch dense vs paged: tokens, logits and routed ids "
+        f"bitwise equal {bitwise}")
+    record["moe_f32"] = {"esel_differ": n_diff, "logits_rel_l2": rel,
+                         "tokens_equal": tc == tt,
+                         "dense_paged_bitwise": bitwise}
+    assert n_diff == 0 and np.array_equal(ec, et), "routed ids differ"
+    assert rel <= 1e-4, f"logits relative L2 {rel:.3e} > 1e-4"
+    assert tc == tt, "tokens differ"
+    assert bitwise, "dense and paged experts are not bitwise equal"
+    del params
+    torch.cuda.empty_cache()
 
 
 def _map(tree, fn):
@@ -634,6 +1101,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("6 f32 topk cuda vs torch", lambda: phase_f32_topk(state))
     run_phase("7 reduced card vs cpu", phase_reduced_cpu)
+    for k in ("cfg", "params", "engine", "work"):
+        state.pop(k, None)
+    free_cuda()
+    run_phase("8 moe kernels vs plain", phase_moe_kernels)
+    free_cuda()
+    run_phase("9 moe serve full width", lambda: phase_moe_serve(state))
+    run_phase("10 moe teacher-forced per layer",
+              lambda: phase_moe_teacher_forced(state))
+    state.pop("moe_engine", None)
+    free_cuda()
+    run_phase("11 moe f32 cuda vs torch, dense vs paged",
+              lambda: phase_moe_f32(state))
+    run_phase("12 moe reduced card vs cpu", lambda: phase_reduced_cpu(
+        MOE_ARCH, "moe_reduced_cpu", expert_pool="paged"))
     record["seconds"] = time.perf_counter() - t0
     record["failures"] = failures
     if os.environ.get("CHIP_SMOKE_JSON"):
@@ -643,13 +1124,18 @@ def main() -> int:
     if failures:
         log(f"chip_smoke: FAILED phases {failures}")
         return 1
-    launches = state.get("launches", {})
+    # launches of both serve paths, each counted from 0 around its run
+    launches = {k: state["launches"].get(k, 0) + v
+                for k, v in state["moe_launches"].items()}
     kernels = []
+    moe_src = "src/repro_torch/kernels/csrc/moe_dispatch.cu"
     for name, src, tpu in (
             ("paged_decode_attn",
              "src/repro_torch/kernels/csrc/paged_decode_attn.cu", DECODE_TPU),
             ("flash_prefill", "src/repro_torch/kernels/csrc/flash_prefill.cu",
-             PREFILL_TPU)):
+             PREFILL_TPU),
+            ("moe_paged_gateup", moe_src, GATEUP_TPU),
+            ("moe_paged_down", moe_src, DOWN_TPU)):
         r = record[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -13,6 +13,19 @@ with ``--device cpu``, where the plain PyTorch versions run:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --reduced --device cpu --requests 16 --shared-prefix 4
 
+MoE configs serve their decode-step experts from a paged expert-weight
+pool (``--expert-pool paged``: the MoE CUDA kernels on the card) or from
+its dense view (``dense``); ``off`` runs the capacity dispatch:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-235b-a22b --reduced --device cpu --expert-pool paged
+
+At full width one card holds 8 of qwen3-moe-235b-a22b's 94 layers:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-235b-a22b --layers 8 --expert-pool paged \
+      --requests 8 --prompt-len 1500 --gen 32 --chunk 256
+
 Flags of the reference launcher that belong to later slices of the port
 are recognised and rejected with the slice's name.
 """
@@ -20,6 +33,7 @@ are recognised and rejected with the slice's name.
 from __future__ import annotations
 
 import argparse
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -43,11 +57,10 @@ _LATER_SLICES = {
     "--session-hold": "5. Async executor and multi-turn sessions",
     "--idle-swap": "5. Async executor and multi-turn sessions",
     "--policy": "5. Async executor and multi-turn sessions",
-    "--expert-pool": "2. MoE expert pages",
-    "--expert-tile-rows": "2. MoE expert pages",
-    "--expert-nsb-slots": "2. MoE expert pages",
-    "--expert-runahead": "2. MoE expert pages",
-    "--expert-runahead-pages": "2. MoE expert pages",
+    # the expert NSB staging tier and its router-keyed runahead
+    "--expert-nsb-slots": "3. Online runahead staging",
+    "--expert-runahead": "3. Online runahead staging",
+    "--expert-runahead-pages": "3. Online runahead staging",
     "--batch": "7. The single-batch Engine and the other model families",
     "--dense": "7. The single-batch Engine and the other model families",
     "--no-donate": "none: PyTorch updates the pools in place",
@@ -94,7 +107,9 @@ def run(cfg, params, args, device) -> PagedEngine:
                       max_batch=args.max_batch, chunk=args.chunk,
                       nsb_pages=args.nsb_pages,
                       prefix_cache=not args.no_prefix_cache,
-                      kernel=args.kernel, device=device)
+                      kernel=args.kernel, device=device,
+                      expert_pool=args.expert_pool,
+                      expert_tile_rows=args.expert_tile_rows)
     eng.run(workload)
     m = eng.metrics()
     print(f"[serve-cb] {m['n_finished']}/{len(workload)} requests in "
@@ -117,6 +132,14 @@ def run(cfg, params, args, device) -> PagedEngine:
               f"skipped ({m['prefill_tokens_run']} run), "
               f"{m['cow_copies']} COW copies, "
               f"{m['prefix_evictions']} evictions")
+    if args.expert_pool != "off":
+        print(f"[serve-cb] expert pool={m['expert_pool']}: "
+              f"{m['expert_pool_pages']} tile pages "
+              f"({m['expert_pool_mib']:.2f} MiB, "
+              f"{m['expert_tile_rows']}-row tiles), "
+              f"{m['expert_pages_touched']} demand touches, hit rate "
+              f"{_fmt(m['expert_nsb_hit_rate'])} (demand-LRU baseline "
+              f"{_fmt(m['expert_demand_lru_hit_rate'])})")
     return eng
 
 
@@ -124,6 +147,9 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--reduced", action="store_true")
+    p.add_argument("--layers", type=int, default=0, metavar="N",
+                   help="cut the config to N layers (depth only; one card "
+                        "holds 8 layers of qwen3-moe-235b-a22b's experts)")
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--rate", type=float, default=0.5,
                    help="Poisson arrivals per scheduler iteration")
@@ -143,6 +169,13 @@ def main(argv=None):
                    help="attention: cuda = the port's kernels (plain "
                         "versions for CPU tensors); torch = the plain "
                         "versions everywhere")
+    p.add_argument("--expert-pool", choices=("off", "dense", "paged"),
+                   default="off",
+                   help="MoE decode experts: off = capacity dispatch; "
+                        "dense = routed experts' rows from a dense view; "
+                        "paged = row-tile pages through the block table")
+    p.add_argument("--expert-tile-rows", type=int, default=32,
+                   help="rows of d_ff per expert weight tile page")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--seed", type=int, default=0,
@@ -159,6 +192,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     return run(cfg, params, args, device)

@@ -1,6 +1,7 @@
-"""Dense decoder pieces the paged serve path shares: the embedding
-lookup, the SwiGLU/GeGLU/GELU feed-forward and the float32 last-token
-logits.  The large products are plain ``torch.matmul``."""
+"""Decoder pieces the paged serve path shares: the embedding lookup, the
+SwiGLU/GeGLU/GELU feed-forward (or the MoE capacity dispatch of
+:mod:`.moe` for MoE configs) and the float32 last-token logits.  The
+large products are plain ``torch.matmul``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..params import torch_dtype
+from . import moe
 
 Params = dict
 
@@ -21,10 +23,10 @@ def embed(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def ffn(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
-    """The dense feed-forward block on [B, S, D]."""
+    """The feed-forward block on [B, S, D]: dense, or the MoE capacity
+    dispatch for MoE configs (the reference's ``transformer._ffn``)."""
     if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE feed-forward belongs to the MoE slice of the port")
+        return moe.moe_ffn(x, p, cfg)
     h = torch.matmul(x, p["wi"].to(x.dtype))
     if cfg.act in ("swiglu", "geglu"):
         g = torch.matmul(x, p["wg"].to(x.dtype))

@@ -1,4 +1,4 @@
-"""Continuous-batching serve engine on a paged KV pool (dense, synchronous).
+"""Continuous-batching serve engine on a paged KV pool (synchronous).
 
 The port of the reference's ``serve/engine.py::PagedEngine`` main path.
 Requests arrive through an admission queue (:mod:`.scheduler`); each
@@ -18,6 +18,15 @@ and ``kernels.flash_prefill``, which run their plain PyTorch versions
 for tensors on the CPU) or the plain versions everywhere
 (``kernel="torch"``).
 
+MoE configs: the chunked prefill runs the capacity dispatch
+(``models.moe.moe_ffn``) in every layer, as the reference's prefill
+does.  The decode step runs it too with ``expert_pool="off"``; with
+``"dense"`` or ``"paged"`` it routes each row to its top-k experts and
+reads their weights as row-tile pages of :class:`.expert_pool.ExpertPool`
+(``"paged"`` with ``kernel="cuda"`` through the two MoE CUDA kernels),
+returns the routed ids of every layer with the logits, and scores the
+pages they demand against a demand-LRU (``expert_nsb_slots`` pages).
+
 Preemption is by recompute: prompts re-prefill and generated tokens
 replay through the decode path, so the same functions see the same
 inputs.  Resume is bitwise at a fixed decode batch shape
@@ -27,9 +36,9 @@ differently, so logits then agree to float32 rounding.  Physical page
 ids are the one currency of the allocator, the TopK gather and the NSB
 hot-set accounting (:class:`.page_cache.PageCache`).
 
-Host syncs: one copy of the logits and one of the layer-0 selection per
-decode step, one copy of the logits per prefill chunk that finishes a
-prompt; none per layer.
+Host syncs: one copy of the logits and one of the layer-0 selection (and
+of the routed expert ids, with an expert pool) per decode step, one copy
+of the logits per prefill chunk that finishes a prompt; none per layer.
 """
 
 from __future__ import annotations
@@ -47,13 +56,16 @@ from ..kernels.flash_prefill import flash_prefill
 from ..kernels.paged_decode_attn import paged_decode_attn
 from ..models import layers as mlayers
 from ..models import sparse_attention, transformer
-from ..params import torch_dtype
+from ..params import pack_experts, torch_dtype
+from . import expert_pool as expert_pool_mod
+from . import not_ported
 from . import scheduler as scheduler_mod
 from .kv_allocator import NULL_PAGE, KVBlockAllocator, PagePoolConfig
 from .page_cache import PageCache
 from .scheduler import PrefillJob, Request, Scheduler
 
 KERNELS = ("cuda", "torch")
+EXPERT_RUNAHEAD = ("off", "router")
 
 
 def percentile(xs, q: float) -> float | None:
@@ -112,22 +124,31 @@ class PagedServeStats(ServeStats):
     decode_iterations: int = 0
     overlap_iterations: int = 0     # iterations where both streams ran
     iter_log: list = field(default_factory=list)  # (n_chunks, n_rows)
+    # expert-weight page traffic (expert_pool != "off"): unique tile
+    # pages demanded per decode step, scored against the demand-LRU
+    expert_pages_touched: int = 0
+    expert_nsb_hits: int = 0
+    expert_nsb_misses: int = 0
 
-
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it belongs to the ROADMAP slice "
-        f"'{slice_name}'")
+    @property
+    def expert_hot_hit_rate(self) -> float | None:
+        """Expert-tile hit rate (None before expert traffic)."""
+        tot = self.expert_nsb_hits + self.expert_nsb_misses
+        return self.expert_nsb_hits / tot if tot else None
 
 
 def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
-                 pools: tuple, host: np.ndarray, attend, probe=None):
+                 pools: tuple, host: np.ndarray, attend, probe=None,
+                 expert_ffn=None):
     """One ragged decode step over the physical pools, updated in place.
 
     ``host`` int64 [R, 5 + NL] packs, per row, the token, position,
     frontier physical page, offset in it, valid-page count and the block
-    table (NULL-padded; padded rows scribble on scratch page 0).  Returns
-    (float32 logits [R, V], layer-0 physical selection [R, KV, K])."""
+    table (NULL-padded; padded rows scribble on scratch page 0).
+    ``expert_ffn(layer, layer_params, h)`` -> (out [R, 1, D], eids
+    [R, k]) replaces the feed-forward of an MoE config served from an
+    expert pool.  Returns (float32 logits [R, V], layer-0 physical
+    selection [R, KV, K], routed expert ids [L, R, k] or None)."""
     k_pool, v_pool, s_pool = pools
     dev = k_pool.device
     t = torch.from_numpy(host).to(dev)
@@ -142,6 +163,7 @@ def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
     x = transformer.embed(params, cfg, token[:, None])     # [R,1,D]
     pos_arr = pos[:, None]
     sel0 = None
+    esel = []
     for li, lp in enumerate(layer_params):
         kp, vp, sp = k_pool[li], v_pool[li], s_pool[li]
         h = mlayers.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -168,9 +190,15 @@ def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
             sel0 = phys
         x = x + mlayers.attn_out(o.reshape(r, 1, cfg.n_heads, hd), lp)
         h2 = mlayers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + transformer.ffn(h2, lp, cfg)
+        if expert_ffn is None:
+            x = x + transformer.ffn(h2, lp, cfg)
+        else:
+            y, eids = expert_ffn(li, lp, h2)
+            x = x + y
+            esel.append(eids)
     x = mlayers.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return transformer.logits_last(params, cfg, x), sel0
+    return (transformer.logits_last(params, cfg, x), sel0,
+            torch.stack(esel) if esel else None)
 
 
 def paged_prefill(cfg: ArchConfig, params: dict, layer_params: list,
@@ -180,8 +208,10 @@ def paged_prefill(cfg: ArchConfig, params: dict, layer_params: list,
     tokens from absolute position ``start``.  K/V go into the pools (in
     place) through the block table ``bt`` [NL], the touched pages'
     summaries are recomputed, and attention is causal over the
-    block-table-gathered context.  Returns the float32 logits [V] of the
-    chunk's last valid token."""
+    block-table-gathered context.  An MoE config runs the capacity
+    dispatch here whatever the engine's expert pool, as the reference's
+    prefill does.  Returns the float32 logits [V] of the chunk's last
+    valid token."""
     k_pool, v_pool, s_pool = pools
     dev = k_pool.device
     page = cfg.kv_page
@@ -266,9 +296,18 @@ class PagedEngine:
       (copy-on-write); logits are bitwise-identical either way.
     * ``row_bucketing`` — pad ragged decode batches to power-of-two row
       buckets (NULL block-table rows) instead of ``max_batch``.
+    * ``expert_pool="off" | "dense" | "paged"`` (MoE configs) — the
+      decode step's expert FFN: the capacity dispatch, or routed experts'
+      weights read as row-tile pages (``expert_tile_rows`` rows each)
+      from a dense view or through the block table; dense and paged are
+      bitwise equal with ``kernel="torch"``.  ``expert_nsb_slots`` sizes
+      the demand-LRU the expert pages are scored against.
     * ``attend_probe`` (attribute, default None) — a callable
       ``probe(layer, inputs)`` run after each decode layer's attention
       with that layer's inputs and output, for checks.
+    * ``moe_probe`` (attribute, default None) — the same for the MoE
+      kernels of ``expert_pool="paged"`` with ``kernel="cuda"``: called
+      with the layer and the kernels' inputs and outputs.
 
     Arguments of the reference engine that later slices port raise
     ``NotImplementedError``.
@@ -282,31 +321,32 @@ class PagedEngine:
                  device: str | torch.device = "cuda",
                  mesh=None, runahead: str = "off", spill_pages: int = 0,
                  executor: str = "sync", expert_pool: str = "off",
+                 expert_tile_rows: int = 32, expert_nsb_slots: int = 32,
+                 expert_runahead: str = "off",
+                 expert_runahead_pages: int = 16,
                  capture_trace: bool = False,
                  session_hold: bool = False) -> None:
         if mesh is not None:
-            raise _not_ported("mesh= (tensor parallelism)",
-                              "6. Tensor parallelism")
+            raise not_ported("mesh= (tensor parallelism)",
+                             "6. Tensor parallelism")
         if runahead != "off":
-            raise _not_ported(f"runahead={runahead!r}",
-                              "3. Online runahead staging")
+            raise not_ported(f"runahead={runahead!r}",
+                             "3. Online runahead staging")
         if spill_pages:
-            raise _not_ported("spill_pages (host spill tier)",
-                              "4. Host spill tier")
+            raise not_ported("spill_pages (host spill tier)",
+                             "4. Host spill tier")
         if executor != "sync":
-            raise _not_ported(f"executor={executor!r}",
-                              "5. Async executor and multi-turn sessions")
-        if expert_pool != "off" or cfg.n_experts:
-            raise _not_ported("MoE expert pages", "2. MoE expert pages")
+            raise not_ported(f"executor={executor!r}",
+                             "5. Async executor and multi-turn sessions")
         if capture_trace:
-            raise _not_ported("capture_trace (NVR simulator capture)",
-                              "3. Online runahead staging")
+            raise not_ported("capture_trace (NVR simulator capture)",
+                             "3. Online runahead staging")
         if session_hold:
-            raise _not_ported("session_hold",
-                              "5. Async executor and multi-turn sessions")
-        if cfg.family != "dense" or cfg.mrope_sections:
+            raise not_ported("session_hold",
+                             "5. Async executor and multi-turn sessions")
+        if cfg.family not in ("dense", "moe") or cfg.mrope_sections:
             raise NotImplementedError(
-                "PagedEngine serves dense decoder-only configs")
+                "PagedEngine serves dense and MoE decoder-only configs")
         if not cfg.sparse_kv:
             raise NotImplementedError(
                 "PagedEngine requires the sparse-KV decode path")
@@ -315,9 +355,26 @@ class PagedEngine:
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{kernel!r}")
+        if expert_pool not in expert_pool_mod.MODES:
+            raise ValueError(f"expert_pool must be one of "
+                             f"{expert_pool_mod.MODES}, got {expert_pool!r}")
+        if expert_pool != "off" and not cfg.n_experts:
+            raise ValueError("expert_pool requires an MoE-family config "
+                             f"(cfg {cfg.name!r} has n_experts=0)")
+        if expert_runahead not in EXPERT_RUNAHEAD:
+            raise ValueError(f"expert_runahead must be one of "
+                             f"{EXPERT_RUNAHEAD}, got {expert_runahead!r}")
+        if expert_runahead != "off":
+            # expert_runahead_pages only bounds this stage's copies
+            raise not_ported(f"expert_runahead={expert_runahead!r}",
+                             "3. Online runahead staging")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
+        if cfg.n_experts:
+            # one buffer behind the expert weights, which the expert
+            # pool wraps (a copy only when the caller's were not packed)
+            self.params["layers"] = pack_experts(self.params["layers"])
         self._layers = [{k: v[li] for k, v in self.params["layers"].items()}
                         for li in range(cfg.n_layers)]
         self.max_len = max_len
@@ -360,6 +417,17 @@ class PagedEngine:
         self.s_pool = torch.zeros(
             (cfg.n_layers, self.n_pages, cfg.n_kv_heads, cfg.hd),
             dtype=torch.float32, device=self.device)
+        self.expert_pool_mode = expert_pool
+        self.expert_runahead = expert_runahead
+        self.ep = None
+        self.ep_hot = None
+        self.moe_probe = None
+        if expert_pool != "off":
+            self.ep = expert_pool_mod.ExpertPool(
+                cfg, self.params, tile_rows=expert_tile_rows)
+            self.ep_hot = PageCache(expert_nsb_slots)
+            self._ep_rows = self.ep.dense_rows()
+            self._ep_bt = self.ep.table_device()
         self.now = 0
         self._next_rid = 0
         self.requests: dict[int, Request] = {}
@@ -454,7 +522,8 @@ class PagedEngine:
 
     def _dispatch_decode(self, pairs: list, rb: int):
         """Run one decode batch over ``(row_slot, request)`` pairs padded
-        to ``rb`` rows; return device ``(logits, layer-0 selection)``.
+        to ``rb`` rows; return device ``(logits, layer-0 selection,
+        routed expert ids or None)``.
         Empty slots carry token 0, position 0 and a NULL block table, so
         every write of theirs lands on the scratch page."""
         host = np.zeros((rb, 5 + self.n_logical), dtype=np.int64)
@@ -468,9 +537,22 @@ class PagedEngine:
             host[slot, 4] = 1                 # n_valid of a NULL row
         return paged_decode(self.cfg, self.params, self._layers,
                             self._pools, host, self._attend_decode,
-                            self.attend_probe)
+                            self.attend_probe,
+                            self._expert_ffn if self.ep else None)
 
-    def _commit_decode(self, pairs: list, logits, sel0, rb: int) -> None:
+    def _expert_ffn(self, li: int, lp: dict, h: torch.Tensor):
+        """The decode step's expert FFN of layer ``li`` from the pool."""
+        if self.expert_pool_mode == "dense":
+            return expert_pool_mod.dense_moe_ffn(h, lp, self._ep_rows[li],
+                                                 self.cfg)
+        probe = self.moe_probe
+        return expert_pool_mod.paged_moe_ffn(
+            h, lp, self._ep_bt[li], self.ep.pool, self.cfg,
+            kernel=self.kernel,
+            probe=None if probe is None else lambda x: probe(li, x))
+
+    def _commit_decode(self, pairs: list, logits, sel0, rb: int,
+                       esel=None) -> None:
         """Sample, advance frontiers and score NSB traffic, in plan
         order (finishes free pages through the allocator's LIFO free
         list, so the order is observable in later page ids)."""
@@ -505,12 +587,35 @@ class PagedEngine:
                 self.stats.nsb_hits += 1
             else:
                 self.stats.nsb_misses += 1
+        if esel is not None:
+            self._account_expert_pages(esel.cpu().numpy(), occ)
+
+    def _account_expert_pages(self, es: np.ndarray, occ: np.ndarray) -> None:
+        """Expert-tile demand accounting for one committed decode step.
+
+        ``es`` is the step's routed expert ids [L, R, top_k].  Every
+        routed (row, layer, expert) demands the expert's full tile range
+        (3 planes x NT pages); the step's unique pages (np.unique sorts,
+        so the touch order depends on the page set alone) are scored
+        against the demand-LRU.  The reference also records them per
+        request for its capture and runahead predictor, which come with
+        a later slice."""
+        ep = self.ep
+        uniq = np.unique(np.concatenate(
+            [ep.pages_for_experts(li, es[li, occ])
+             for li in range(ep.n_layers)]))
+        for p in uniq:
+            self.stats.expert_pages_touched += 1
+            if self.ep_hot.touch(int(p)):
+                self.stats.expert_nsb_hits += 1
+            else:
+                self.stats.expert_nsb_misses += 1
 
     def _run_decode(self, rows: list, bucket: int = 0) -> None:
         rb = bucket or self.max_batch
         pairs = list(enumerate(rows))
-        logits, sel0 = self._dispatch_decode(pairs, rb)
-        self._commit_decode(pairs, logits, sel0, rb)
+        logits, sel0, esel = self._dispatch_decode(pairs, rb)
+        self._commit_decode(pairs, logits, sel0, rb, esel)
 
     # -- iteration loop ------------------------------------------------------
 
@@ -584,6 +689,22 @@ class PagedEngine:
             "prefix_evictions": self.allocator.stats.prefix_evictions,
             "cow_copies": self.allocator.stats.cow_copies,
             "decode_rows_padded": st.decode_rows_padded,
+            "expert_pool": self.expert_pool_mode,
+            **self._expert_metrics(),
+        }
+
+    def _expert_metrics(self) -> dict:
+        if self.ep is None:
+            return {}
+        return {
+            "expert_pool_pages": self.ep.n_pages,
+            "expert_pool_mib": self.ep.pool_bytes / 2 ** 20,
+            "expert_tile_rows": self.ep.tile_rows,
+            "expert_pages_touched": self.stats.expert_pages_touched,
+            "expert_nsb_hit_rate": self.stats.expert_hot_hit_rate,
+            # without the staging tier the hit rate is the demand-LRU's
+            "expert_demand_lru_hit_rate": self.ep_hot.hit_rate,
+            "expert_runahead_mode": self.expert_runahead,
         }
 
 

@@ -17,6 +17,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.moe_dispatch import (moe_paged_down,
+                                              moe_paged_down_plain,
+                                              moe_paged_gateup,
+                                              moe_paged_gateup_plain)
 from repro_torch.kernels.paged_decode_attn import paged_decode_attn
 from repro_torch.models.layers import chunked_attention
 from repro_torch.models.sparse_attention import (attend_pages_paged,
@@ -138,6 +142,79 @@ def test_reduced_engine_card_matches_cpu(dev):
                           device=device)
         eng.run([(t, p.copy(), g) for t, p, g in work])
         engines.append(eng)
+    for rid, a in engines[0].requests.items():
+        b = engines[1].requests[rid]
+        assert a.out_tokens == b.out_tokens
+        np.testing.assert_allclose(a.last_logits, b.last_logits, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _moe_inputs(dev, r, k, nt, tf, d, dtype, seed=0, n_pages=50):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _DT[dtype]
+    pool = torch.randn((n_pages, tf, d), generator=gen, device=dev).to(dt)
+    pool[0] = 0                                  # the zero scratch page
+    pids = torch.randint(0, n_pages, (r, k, nt), generator=gen,
+                         device=dev).to(torch.int32)
+    x = torch.randn((r, d), generator=gen, device=dev).to(dt)
+    h = torch.randn((r, k, nt * tf), generator=gen, device=dev).to(dt)
+    return pids, x, h, pool
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,k,nt,tf,d", [
+    (8, 8, 4, 32, 512), (3, 2, 5, 16, 128), (1, 1, 1, 8, 40),
+    (2, 3, 6, 7, 100), (5, 4, 3, 64, 256)])
+def test_moe_kernels_match_plain(dev, dtype, r, k, nt, tf, d):
+    """Vector loads where D fills 16-byte vectors, element loads where it
+    does not (d=40 in bfloat16, d=100), and tiles of any row count."""
+    pids, x, h, pool = _moe_inputs(dev, r, k, nt, tf, d, dtype)
+    n = (moe_paged_gateup.launches, moe_paged_down.launches)
+    g = moe_paged_gateup(pids, x, pool)
+    y = moe_paged_down(pids, h, pool)
+    torch.cuda.synchronize()
+    assert (moe_paged_gateup.launches, moe_paged_down.launches) == (
+        n[0] + 1, n[1] + 1)
+    tol = _tol(x.dtype)
+    assert g.dtype == y.dtype == x.dtype
+    torch.testing.assert_close(g.float(),
+                               moe_paged_gateup_plain(pids, x, pool).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(y.float(),
+                               moe_paged_down_plain(pids, h, pool).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_moe_kernels_reject_what_they_do_not_take(dev):
+    pids, x, h, pool = _moe_inputs(dev, 2, 2, 3, 8, 64, "float32")
+    with pytest.raises(TypeError):
+        moe_paged_gateup(pids.long(), x, pool)
+    with pytest.raises(TypeError):
+        moe_paged_gateup(pids, x.bfloat16(), pool)
+    with pytest.raises(TypeError):
+        moe_paged_down(pids, h.half(), pool.half())
+    with pytest.raises(ValueError):
+        moe_paged_down(pids.cpu(), h, pool)
+    with pytest.raises(ValueError):
+        moe_paged_gateup(pids.transpose(0, 1), x, pool)
+    with pytest.raises(ValueError):
+        moe_paged_down(pids, h[:, :, :-1], pool)
+
+
+def test_reduced_moe_engine_card_matches_cpu(dev):
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    work = [(0.5 * i, rng.integers(1, cfg.vocab, size=int(n)), 6)
+            for i, n in enumerate(rng.integers(5, 30, size=6))]
+    engines = []
+    for device in ("cuda", "cpu"):
+        eng = PagedEngine(cfg, params, max_len=48, max_batch=4, chunk=8,
+                          device=device, expert_pool="paged")
+        eng.run([(t, p.copy(), g) for t, p, g in work])
+        engines.append(eng)
+    assert engines[0].stats.expert_pages_touched == \
+        engines[1].stats.expert_pages_touched > 0
     for rid, a in engines[0].requests.items():
         b = engines[1].requests[rid]
         assert a.out_tokens == b.out_tokens

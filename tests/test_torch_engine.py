@@ -258,7 +258,7 @@ def test_metrics_and_validation(weights):
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh": object()}, {"runahead": "nvr"}, {"spill_pages": 8},
-    {"executor": "async"}, {"expert_pool": "paged"},
+    {"executor": "async"}, {"expert_runahead": "router"},
     {"capture_trace": True}, {"session_hold": True}],
     ids=lambda k: next(iter(k)))
 def test_later_slice_arguments_raise(weights, kwargs):
@@ -278,7 +278,7 @@ def test_launcher_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--tp=2", "--runahead=nvr", "--spill=8",
                                   "--executor=async", "--capture",
-                                  "--expert-pool=paged", "--batch=2"])
+                                  "--expert-runahead=router", "--batch=2"])
 def test_launcher_rejects_later_slice_flags(flag):
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
