@@ -38,7 +38,24 @@ final result line):
 11. 2 layers at full width in float32: ``kernel="cuda"`` against
     ``"torch"`` (routed experts and logits), and dense against paged
     experts with ``kernel="torch"`` (bitwise);
-12. reduced qwen3-moe in float32 with paged experts: card against CPU.
+12. reduced qwen3-moe in float32 with paged experts: card against CPU;
+13. the single-batch path's new kernels against their plain versions:
+    ``sparse_decode_attn`` at qwen2-1.5b's decode shapes (bfloat16,
+    float32 and int8 K/V, with the frontier, and the TPU kernel's
+    contract without it) and ``gather_rows`` at the embedding lookups of
+    a decode step and of the batched prefill, timed beside their bound,
+    the plain versions and a PyTorch yardstick;
+14. the single-batch ``Engine`` on qwen2-1.5b at full width in bfloat16:
+    a batch of 8 prompts of 1536 tokens prefilled together, 32 tokens
+    decoded in lockstep with TopK sparse attention, then a few dense
+    steps — launches, decode ms/step, prefill tokens/s, NSB hit rate,
+    peak memory and one profiled decode step;
+15. teacher-forced check of ``sparse_decode_attn`` in all 28 layers of
+    one sparse step;
+16. full width in float32, ``kernel="cuda"`` against ``"torch"``: TopK
+    selections of every layer, logits and tokens;
+17. the reduced single-batch ``Engine`` (sparse and dense): the card
+    against the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_JSON=<path>`` in
@@ -77,6 +94,12 @@ DECODE_TPU = "src/repro/kernels/paged_decode_attn.py:129"
 PREFILL_TPU = "src/repro/kernels/flash_prefill.py:106"
 GATEUP_TPU = "src/repro/kernels/moe_dispatch.py:147"
 DOWN_TPU = "src/repro/kernels/moe_dispatch.py:213"
+SPARSE_TPU = "src/repro/kernels/sparse_decode_attn.py:98"
+GATHER_TPU = "src/repro/kernels/gather_rows.py:45"
+
+# the single-batch path: 8 prompts of 1536 tokens, 32 generated, TopK 64
+# of 98 pages of 16
+SB_BATCH, SB_PROMPT, SB_GEN, SB_DENSE_STEPS = 8, 1536, 32, 4
 
 record: dict = {"phases": {}}
 failures: list[str] = []
@@ -438,6 +461,7 @@ def phase_serve(state: dict) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.gather_rows import gather_rows
     from repro_torch.kernels.paged_decode_attn import paged_decode_attn
     from repro_torch.params import init_params
     cfg = get_config("qwen2-1.5b")
@@ -447,7 +471,8 @@ def phase_serve(state: dict) -> None:
     eng = full_engine(cfg, params, kernel="cuda")
     work = serve_workload(cfg)
     run = drive_serve(eng, work, {"paged_decode_attn": paged_decode_attn,
-                                  "flash_prefill": flash_prefill})
+                                  "flash_prefill": flash_prefill,
+                                  "gather_rows": gather_rows})
     launches, run_s, ms = run["launches"], run["run_s"], run["decode_ms"]
     prefill_s, profiled = run["prefill_s"], run["profiled"]
     state["launches"] = launches
@@ -467,7 +492,8 @@ def phase_serve(state: dict) -> None:
     log(f"[serve] launches: paged_decode_attn {launches['paged_decode_attn']}"
         f" (decode steps x {L} = {st.steps * L}), flash_prefill "
         f"{launches['flash_prefill']} (prefill chunks x {L} = "
-        f"{st.prefill_calls * L})")
+        f"{st.prefill_calls * L}), gather_rows {launches['gather_rows']} "
+        f"(decode steps + prefill chunks = {st.steps + st.prefill_calls})")
     per_step = st.pages_touched / max(st.steps, 1)
     why = ("more than the LRU holds, so each step evicts the pages the "
            "next one needs and the LRU thrashes"
@@ -492,6 +518,7 @@ def phase_serve(state: dict) -> None:
     assert done == N_REQ, f"{done}/{N_REQ} requests finished"
     assert launches["paged_decode_attn"] == st.steps * L
     assert launches["flash_prefill"] == st.prefill_calls * L
+    assert launches["gather_rows"] == st.steps + st.prefill_calls
     assert all(np.isfinite(r.last_logits).all()
                for r in eng.requests.values())
     state["engine"] = eng
@@ -867,13 +894,15 @@ def phase_moe_kernels() -> None:
 
 def moe_kernels() -> dict:
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.gather_rows import gather_rows
     from repro_torch.kernels.moe_dispatch import (moe_paged_down,
                                                   moe_paged_gateup)
     from repro_torch.kernels.paged_decode_attn import paged_decode_attn
     return {"paged_decode_attn": paged_decode_attn,
             "flash_prefill": flash_prefill,
             "moe_paged_gateup": moe_paged_gateup,
-            "moe_paged_down": moe_paged_down}
+            "moe_paged_down": moe_paged_down,
+            "gather_rows": gather_rows}
 
 
 def phase_moe_serve(state: dict) -> None:
@@ -930,7 +959,8 @@ def phase_moe_serve(state: dict) -> None:
         f"({st.steps * L}), paged_decode_attn "
         f"{launches['paged_decode_attn']} ({st.steps * L}), flash_prefill "
         f"{launches['flash_prefill']} (prefill chunks x {L} = "
-        f"{st.prefill_calls * L})")
+        f"{st.prefill_calls * L}), gather_rows {launches['gather_rows']} "
+        f"({st.steps + st.prefill_calls})")
     acc = np.asarray(account_s) * 1e3
     log(f"[moe serve] expert pages: {st.expert_pages_touched} unique-per-"
         f"step touches ({st.expert_pages_touched / max(st.steps, 1):.0f} a "
@@ -964,6 +994,7 @@ def phase_moe_serve(state: dict) -> None:
     assert launches["moe_paged_down"] == st.steps * L
     assert launches["paged_decode_attn"] == st.steps * L
     assert launches["flash_prefill"] == st.prefill_calls * L
+    assert launches["gather_rows"] == st.steps + st.prefill_calls
     assert all(np.isfinite(r.last_logits).all()
                for r in eng.requests.values())
     assert peak < 80
@@ -1067,6 +1098,407 @@ def phase_moe_f32(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- single-batch phases: the Engine on qwen2-1.5b ---------------------------
+
+def sb_max_len(cfg) -> int:
+    return -(-(SB_PROMPT + SB_GEN) // cfg.kv_page) * cfg.kv_page
+
+
+def sparse_case(gen, kv_dtype, q_dtype, n_layers=1, B=SB_BATCH, KV=2, G=6,
+                D=128, page=16, K=64, S=SB_PROMPT + SB_GEN,
+                pos=SB_PROMPT + 15):
+    """One step of the single-batch decode: ``n_layers`` of a contiguous
+    cache with zeros past the frontier ``pos``, and the TopK pages of
+    each (row, head) chosen by the real scorer from random summaries."""
+    import torch
+
+    from repro_torch.models.sparse_attention import kv_quant, select_pages
+    shape = (n_layers, B, S, KV, D)
+    k, v = (kv_quant(torch.randn(shape, generator=gen, device="cuda"),
+                     kv_dtype) for _ in range(2))
+    k[:, :, pos + 1:] = 0
+    v[:, :, pos + 1:] = 0
+    q = torch.randn((B, KV, G, D), generator=gen, device="cuda").to(q_dtype)
+    kpage = torch.randn((B, S // page, KV, D), generator=gen, device="cuda")
+    idx = select_pages(q, kpage, pos // page + 1, K)
+    return dict(q=q, k=k, v=v, idx=idx, pos=pos, page=page)
+
+
+def sparse_bound(c) -> tuple[float, str, dict]:
+    """Least time of one call: q, out and the ids moved once, and the K
+    and V rows of the live tokens (at or before the frontier) of the
+    selected pages, each read once; 4 * G * D flops per live token."""
+    q, idx, pos, page = c["q"], c["idx"], c["pos"], c["page"]
+    b, kv, g, d = q.shape
+    tok0 = idx.long() * page
+    n_tok = int((pos - tok0 + 1).clamp(0, page).sum())
+    item = c["k"].element_size()
+    nbytes = (2 * q.numel() * q.element_size() + idx.numel() * 4
+              + 2 * n_tok * d * item)
+    flops = 4 * g * d * n_tok
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype_name(c["k"].dtype)] * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), {
+        "bytes": nbytes, "flops": flops, "live_tokens": n_tok,
+        "pages": int(idx.numel())}
+
+
+def phase_sb_kernels() -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather_rows import (gather_rows,
+                                                 gather_rows_plain)
+    from repro_torch.kernels.sparse_decode_attn import (
+        sparse_decode_attn, sparse_decode_attn_plain)
+    from repro_torch.models.sparse_attention import (attend_pages,
+                                                     gather_pages,
+                                                     page_token_positions)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bad = []
+    shape = "B=8 KV=2 G=6 D=128 page=16 K=64 S=1568"
+    for kv_dt, q_dt, tol in ((torch.bfloat16, torch.bfloat16, 1e-2),
+                             (torch.int8, torch.bfloat16, 1e-2),
+                             (torch.float32, torch.float32, 1e-5)):
+        c = sparse_case(gen, kv_dt, q_dt)
+        q, k, v, idx, pos = c["q"], c["k"][0], c["v"][0], c["idx"], c["pos"]
+        page = c["page"]
+        checks = [("pos", sparse_decode_attn(idx, q, k, v, page_size=page,
+                                             pos=pos),
+                   attend_pages(q, k, v, idx, pos, page))]
+        if kv_dt == torch.bfloat16:
+            # the TPU kernel's contract: no frontier, repeated ids count
+            rep = torch.randint(0, k.shape[1] // page, idx.shape,
+                                generator=gen, device="cuda").to(torch.int32)
+            checks.append(("no frontier", sparse_decode_attn(
+                rep, q, k, v, page_size=page), sparse_decode_attn_plain(
+                rep, q, k, v, page_size=page)))
+        torch.cuda.synchronize()
+        for what, got, want in checks:
+            err, ok = close_enough(got, want, tol)
+            log(f"[sparse_decode_attn] {dtype_name(kv_dt)} K/V, {what}: max "
+                f"|err| {err:.3e} (tolerance {tol:g} abs + {tol:g} rel) "
+                f"{'ok' if ok else 'FAIL'}")
+            record.setdefault("sparse_checks", []).append(
+                {"kv": dtype_name(kv_dt), "case": what, "max_abs_err": err,
+                 "tol": tol, "ok": ok})
+            if not ok:
+                bad.append(f"sparse_decode_attn {dtype_name(kv_dt)} {what}")
+    # timing at the main path's bf16 cache, rotating over 8 layers
+    # (~200 MB) so pages come from device memory, not L2
+    c = sparse_case(gen, torch.bfloat16, torch.bfloat16, n_layers=8)
+    layers = itertools.cycle(range(8))
+    q, idx, pos, page = c["q"], c["idx"], c["pos"], c["page"]
+    b, kv, g, d = q.shape
+    mask = (page_token_positions(idx, page) <= pos).reshape(b, kv, 1, -1)
+    kgs = [gather_pages(c["k"][li], idx, page).reshape(b, kv, -1, d)
+           for li in range(8)]
+    vgs = [gather_pages(c["v"][li], idx, page).reshape(b, kv, -1, d)
+           for li in range(8)]
+
+    def kern():
+        li = next(layers)
+        sparse_decode_attn(idx, q, c["k"][li], c["v"][li], page_size=page,
+                           pos=pos)
+
+    def plain():
+        li = next(layers)
+        attend_pages(q, c["k"][li], c["v"][li], idx, pos, page)
+
+    def sdpa():
+        li = next(layers)
+        F.scaled_dot_product_attention(q, kgs[li], vgs[li], attn_mask=mask)
+    bound, by, work = sparse_bound(c)
+    p1, k_ms, y_ms, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(sdpa), \
+        cuda_ms(plain)
+    record["sparse_decode_attn"] = dict(
+        ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+        library_ms=None, sdpa_pregathered_ms=y_ms, work=work,
+        max_abs_err=record["sparse_checks"][0]["max_abs_err"])
+    log(f"[sparse_decode_attn] bf16 {shape} pos={pos}: kernel {k_ms:.4f} ms, "
+        f"plain {min(p1, p2):.4f} ms, bound {bound:.5f} ms ({by}: {work}); "
+        f"library: none (no single PyTorch call gathers TopK pages and "
+        f"attends over them); yardstick scaled_dot_product_attention over "
+        f"pages gathered beforehand, gather excluded: {y_ms:.4f} ms")
+    del c, kgs, vgs
+
+    # gather_rows: the embedding lookups of a decode step and the prefill
+    cfg = get_config("qwen2-1.5b")
+    table = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                         device="cuda") * 0.02).to(torch.bfloat16)
+    for tag, n_rows in (("decode", SB_BATCH),
+                        ("prefill", SB_BATCH * SB_PROMPT)):
+        # four id sets of the prefill's size (4 x 37.7 MB) outrun the L2
+        ids = [torch.randint(0, cfg.vocab, (n_rows,), generator=gen,
+                             device="cuda") for _ in range(4)]
+        got = gather_rows(ids[0], table)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, gather_rows_plain(ids[0], table)))
+        log(f"[gather_rows] {tag} K={n_rows} table [{cfg.vocab}, "
+            f"{cfg.d_model}] bf16: bitwise equal to the plain version: "
+            f"{same}")
+        if not same:
+            bad.append(f"gather_rows {tag}")
+        it = itertools.cycle(ids)
+        nbytes = 2 * n_rows * table.shape[1] * table.element_size() \
+            + n_rows * 8
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        p1 = cuda_ms(lambda: gather_rows_plain(next(it), table))
+        k_ms = cuda_ms(lambda: gather_rows(next(it), table))
+        lib_ms = cuda_ms(lambda: torch.index_select(table, 0, next(it)))
+        p2 = cuda_ms(lambda: gather_rows_plain(next(it), table))
+        row = dict(ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound,
+                   bound_by="bytes", library_ms=lib_ms, max_abs_err=0.0,
+                   bitwise=same, rows=n_rows, bytes=nbytes)
+        record["gather_rows_" + tag] = row
+        log(f"[gather_rows] {tag} K={n_rows}: kernel {k_ms:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound:.5f} ms (bytes: "
+            f"{nbytes}), library torch.index_select {lib_ms:.4f} ms")
+    record["gather_rows"] = record["gather_rows_prefill"]
+    del table
+    if bad:
+        raise AssertionError(f"kernel disagrees with plain: {bad}")
+
+
+def sb_kernels() -> dict:
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.gather_rows import gather_rows
+    from repro_torch.kernels.sparse_decode_attn import sparse_decode_attn
+    return {"sparse_decode_attn": sparse_decode_attn,
+            "flash_prefill": flash_prefill, "gather_rows": gather_rows}
+
+
+def sb_prompts(cfg):
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    return torch.randint(0, cfg.vocab, (SB_BATCH, SB_PROMPT), generator=gen)
+
+
+def phase_sb_serve(state: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("qwen2-1.5b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    state.update(sb_cfg=cfg, sb_params=params)
+    max_len = sb_max_len(cfg)
+    tokens = sb_prompts(cfg)
+    kernels = sb_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    # sparse: prefill, then SB_GEN - 1 lockstep steps (generate's loop,
+    # each step timed; one decode step profiled)
+    eng = Engine(cfg, params, max_len=max_len, sparse=True, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = [eng.prefill({"tokens": tokens})]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_s, profiled = [], None
+    for i in range(SB_GEN - 1):
+        if i == 4:
+            profiled = profile_step(eng)
+            toks.append(eng._last)
+            continue
+        t0 = time.perf_counter()
+        toks.append(eng.step())
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+    out = np.stack([t.cpu().numpy() for t in toks], axis=1)
+    sparse_logits = eng.logits
+    # dense: a fresh prefill of the same prompts, then a few steps
+    dense = Engine(cfg, params, max_len=max_len, sparse=False, device="cuda")
+    dense.prefill({"tokens": tokens})
+    dense_s = []
+    for _ in range(SB_DENSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense.step()
+        torch.cuda.synchronize()
+        dense_s.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    state["sb_launches"] = launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = eng.stats
+    L = cfg.n_layers
+    ms, dms = np.asarray(decode_s) * 1e3, np.asarray(dense_s) * 1e3
+    n_prompt = SB_BATCH * SB_PROMPT
+    log(f"[sb serve] qwen2-1.5b full width bf16, single-batch Engine, "
+        f"kernel=cuda: batch {SB_BATCH} x {SB_PROMPT} prompt tokens, "
+        f"{out.shape[1]} tokens each, max_len {max_len} ({max_len // 16} "
+        f"pages, TopK {cfg.kv_topk_pages})")
+    log(f"[sb serve] sparse: prefill {n_prompt} tokens in {prefill_s:.3f} s "
+        f"= {n_prompt / prefill_s:.0f} tokens/s; decode {len(ms)} timed "
+        f"steps, ms/step mean {ms.mean():.2f} median {np.median(ms):.2f}")
+    log(f"[sb serve] dense: decode {len(dms)} steps, ms/step mean "
+        f"{dms.mean():.2f} median {np.median(dms):.2f}")
+    log(f"[sb serve] launches: sparse_decode_attn "
+        f"{launches['sparse_decode_attn']} (sparse steps x {L} = "
+        f"{st.steps * L}), flash_prefill {launches['flash_prefill']} (2 "
+        f"prefills x {L} + dense steps x {L} = "
+        f"{(2 + SB_DENSE_STEPS) * L}), gather_rows "
+        f"{launches['gather_rows']} (2 prefills + {st.steps} + "
+        f"{SB_DENSE_STEPS} steps = {2 + st.steps + SB_DENSE_STEPS})")
+    log(f"[sb serve] NSB hit rate {st.hot_hit_rate} ({st.pages_touched} "
+        f"layer-0 proxy pages touched, {st.pages_touched / st.steps:.1f} a "
+        f"step, against a {eng.hot.capacity}-page LRU); peak device memory "
+        f"{peak:.2f} GiB (set-up included)")
+    log_profile("sb serve", profiled)
+    record["sb_serve"] = {
+        "batch": SB_BATCH, "prompt": SB_PROMPT, "gen": SB_GEN,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": n_prompt / prefill_s,
+        "decode_ms_mean": float(ms.mean()),
+        "decode_ms_median": float(np.median(ms)),
+        "decode_steps_timed": len(ms),
+        "dense_decode_ms_mean": float(dms.mean()),
+        "dense_decode_ms_median": float(np.median(dms)),
+        "launches": launches, "nsb_hit_rate": st.hot_hit_rate,
+        "pages_touched": st.pages_touched, "profile": profiled,
+        "max_memory_gib": peak}
+    assert out.shape == (SB_BATCH, SB_GEN) and st.steps == SB_GEN - 1
+    assert launches["sparse_decode_attn"] == st.steps * L
+    assert launches["flash_prefill"] == (2 + SB_DENSE_STEPS) * L
+    assert launches["gather_rows"] == 2 + st.steps + SB_DENSE_STEPS
+    assert bool(torch.isfinite(sparse_logits).all())
+    assert bool(torch.isfinite(dense.logits).all())
+    assert ((out >= 0) & (out < cfg.vocab)).all()
+    state["sb_engine"] = eng
+
+
+def phase_sb_teacher_forced(state: dict) -> None:
+    import torch
+
+    from repro_torch.models.sparse_attention import attend_pages
+    eng = state["sb_engine"]
+    tol = 1e-2
+    errs: dict[int, float] = {}
+    fails = []
+
+    def probe(li, x):
+        want = attend_pages(x["q"], x["k"], x["v"], x["idx"], x["pos"],
+                            eng.cfg.kv_page)
+        err, ok = close_enough(x["out"], want, tol)
+        errs[li] = err
+        if not ok:
+            fails.append(li)
+    eng.attend_probe = probe
+    try:
+        eng.step()                           # the cache's last position
+    finally:
+        eng.attend_probe = None
+    torch.cuda.synchronize()
+    log(f"[sb teacher-forced] bf16 full width, pos {eng.cache['pos'] - 1}: "
+        f"{len(errs)} layers checked, max |kernel - plain| per layer "
+        f"{[round(errs[i], 5) for i in sorted(errs)]} (tolerance {tol:g} "
+        f"abs + {tol:g} rel)")
+    record["sb_teacher_forced"] = {"max_abs_err": errs, "tol": tol,
+                                   "failed_layers": sorted(set(fails))}
+    assert len(errs) == eng.cfg.n_layers, "not every layer checked"
+    assert not fails, f"layers {sorted(set(fails))} disagree"
+
+
+def phase_sb_f32(state: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.models.sparse_attention import page_scores
+    from repro_torch.serve.engine import Engine
+    cfg = replace(state["sb_cfg"], param_dtype="float32")
+    params = _map(state["sb_params"], lambda t: t.float())
+    state.pop("sb_params")
+    free_cuda()
+    tokens = sb_prompts(cfg)
+    k = cfg.kv_topk_pages
+    runs = {}
+    for kernel in ("cuda", "torch"):
+        sel: dict = {}
+
+        def probe(li, x, sel=sel):
+            s = page_scores(x["q"], x["kpage"])
+            n_valid = x["pos"] // cfg.kv_page + 1
+            s[..., n_valid:] = float("-inf")
+            sel.setdefault(li, []).append(
+                (x["idx"].cpu().numpy(), s.cpu().numpy()))
+        eng = Engine(cfg, params, max_len=sb_max_len(cfg), sparse=True,
+                     kernel=kernel, device="cuda")
+        eng.attend_probe = probe
+        out = eng.generate({"tokens": tokens}, 3)
+        runs[kernel] = (out, eng.logits.cpu().numpy(), sel)
+        del eng
+        free_cuda()
+    (oc, lc, sc), (ot, lt, stc) = runs["cuda"], runs["torch"]
+    worst_gap, n_diff, n_sel = 0.0, 0, 0
+    for li in sorted(sc):
+        for (ic, s_c), (it, s_t) in zip(sc[li], stc[li]):
+            for r, h in itertools.product(range(ic.shape[0]),
+                                          range(ic.shape[1])):
+                n_sel += 1
+                a, b = set(ic[r, h].tolist()), set(it[r, h].tolist())
+                if a == b:
+                    continue
+                n_diff += 1
+                # pages only one route chose must sit at the K-th boundary
+                for s in (s_c[r, h], s_t[r, h]):
+                    srt = np.sort(s)[::-1]
+                    edge = 0.5 * (srt[k - 1] + srt[k])
+                    scale = max(abs(srt[k - 1]), 1e-30)
+                    gap = max(abs(s[j] - edge) for j in a ^ b) / scale
+                    worst_gap = max(worst_gap, float(gap))
+    rel = float(np.linalg.norm(lc - lt) / np.linalg.norm(lt))
+    same_tok = bool(np.array_equal(oc, ot))
+    log(f"[sb f32] full width f32, prefill + 2 sparse steps: {n_diff} of "
+        f"{n_sel} (step, layer, row, head) TopK selections differ between "
+        f"kernel=cuda and kernel=torch (largest relative gap to the K-th "
+        f"boundary {worst_gap:.3e}, limit 1e-5); last logits relative L2 "
+        f"{rel:.3e} (limit 1e-4); tokens equal: {same_tok}")
+    record["sb_f32"] = {"n_differ": n_diff, "n_selections": n_sel,
+                        "worst_gap": worst_gap, "logits_rel_l2": rel,
+                        "tokens_equal": same_tok}
+    assert n_sel == 2 * cfg.n_layers * SB_BATCH * cfg.n_kv_heads
+    assert worst_gap <= 1e-5, "a TopK difference is not a score tie"
+    assert rel <= 1e-4, f"logits relative L2 {rel:.3e} > 1e-4"
+    assert same_tok, "tokens differ"
+    del runs, params
+    free_cuda()
+
+
+def phase_sb_reduced_cpu() -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, size=(4, 32))
+    res = {}
+    for sparse in (True, False):
+        engines = [Engine(cfg, params, max_len=64, sparse=sparse,
+                          nsb_pages=32, device=dev) for dev in ("cuda", "cpu")]
+        outs = [eng.generate({"tokens": toks}, 16) for eng in engines]
+        a, b = engines[0].logits.cpu().numpy(), engines[1].logits.numpy()
+        worst = float(np.max(np.abs(a - b) / (1 + np.abs(b))))
+        same = bool(np.array_equal(outs[0], outs[1]))
+        stats = vars(engines[0].stats) == vars(engines[1].stats)
+        res["sparse" if sparse else "dense"] = {
+            "tokens_equal": same, "max_rel_err": worst, "stats_equal": stats}
+        log(f"[sb reduced] qwen2-1.5b reduced f32, Engine sparse={sparse}, "
+            f"card (kernels) vs CPU (plain): tokens equal {same}, NSB "
+            f"counters equal {stats}, max |logit diff| / (1 + |logit|) "
+            f"{worst:.3e} (limit 1e-4)")
+    record["sb_reduced_cpu"] = res
+    for r in res.values():
+        assert r["tokens_equal"] and r["stats_equal"]
+        assert r["max_rel_err"] <= 1e-4
+
+
 def _map(tree, fn):
     return {k: (_map(v, fn) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
@@ -1115,6 +1547,20 @@ def main() -> int:
               lambda: phase_moe_f32(state))
     run_phase("12 moe reduced card vs cpu", lambda: phase_reduced_cpu(
         MOE_ARCH, "moe_reduced_cpu", expert_pool="paged"))
+    for k in ("moe_engine", "moe_work"):
+        state.pop(k, None)
+    free_cuda()
+    run_phase("13 single-batch kernels vs plain", phase_sb_kernels)
+    free_cuda()
+    run_phase("14 single-batch Engine full width",
+              lambda: phase_sb_serve(state))
+    run_phase("15 single-batch teacher-forced per layer",
+              lambda: phase_sb_teacher_forced(state))
+    state.pop("sb_engine", None)
+    free_cuda()
+    run_phase("16 single-batch f32 cuda vs torch",
+              lambda: phase_sb_f32(state))
+    run_phase("17 single-batch reduced card vs cpu", phase_sb_reduced_cpu)
     record["seconds"] = time.perf_counter() - t0
     record["failures"] = failures
     if os.environ.get("CHIP_SMOKE_JSON"):
@@ -1124,21 +1570,24 @@ def main() -> int:
     if failures:
         log(f"chip_smoke: FAILED phases {failures}")
         return 1
-    # launches of both serve paths, each counted from 0 around its run
-    launches = {k: state["launches"].get(k, 0) + v
-                for k, v in state["moe_launches"].items()}
+    # launches of the three serve paths, each counted from 0 around its run
+    launches: dict = {}
+    for run in ("launches", "moe_launches", "sb_launches"):
+        for k, v in state[run].items():
+            launches[k] = launches.get(k, 0) + v
     kernels = []
-    moe_src = "src/repro_torch/kernels/csrc/moe_dispatch.cu"
+    csrc = "src/repro_torch/kernels/csrc/"
     for name, src, tpu in (
-            ("paged_decode_attn",
-             "src/repro_torch/kernels/csrc/paged_decode_attn.cu", DECODE_TPU),
-            ("flash_prefill", "src/repro_torch/kernels/csrc/flash_prefill.cu",
-             PREFILL_TPU),
-            ("moe_paged_gateup", moe_src, GATEUP_TPU),
-            ("moe_paged_down", moe_src, DOWN_TPU)):
+            ("paged_decode_attn", "paged_decode_attn.cu", DECODE_TPU),
+            ("flash_prefill", "flash_prefill.cu", PREFILL_TPU),
+            ("moe_paged_gateup", "moe_dispatch.cu", GATEUP_TPU),
+            ("moe_paged_down", "moe_dispatch.cu", DOWN_TPU),
+            ("sparse_decode_attn", "sparse_decode_attn.cu", SPARSE_TPU),
+            ("gather_rows", "gather_rows.cu", GATHER_TPU)):
         r = record[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": tpu,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

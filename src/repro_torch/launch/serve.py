@@ -1,30 +1,42 @@
-"""Serving launcher: continuous batching through the port's PagedEngine.
+"""Serving launcher of the port, with random weights made from ``--seed``.
 
-Poisson arrivals of random prompts go through the paged engine
-(admission queue, chunked prefill, TopK sparse decode over the physical
-page pool) with random weights made from ``--seed``:
+Single-batch (lockstep) mode, the default: ``--batch`` prompts of
+``--prompt-len`` random tokens prefill together and decode ``--gen``
+tokens in lockstep through the single-batch ``Engine`` (TopK sparse
+decode over a contiguous cache; ``--dense`` attends to the whole cache):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
-      --requests 8 --prompt-len 1500 --gen 32 --chunk 256
+      --batch 8 --prompt-len 1536 --gen 32
+
+Continuous-batching mode (``--continuous``): Poisson arrivals of random
+prompts go through the paged engine (admission queue, chunked prefill,
+TopK sparse decode over the physical page pool):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --continuous --requests 8 --prompt-len 1500 --gen 32 --chunk 256
 
 On the CUDA card by default (the kernels build at first use); on the CPU
 with ``--device cpu``, where the plain PyTorch versions run:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
-      --reduced --device cpu --requests 16 --shared-prefix 4
+      --reduced --device cpu --batch 2 --prompt-len 32 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --reduced --device cpu --continuous --requests 16 --shared-prefix 4
 
 MoE configs serve their decode-step experts from a paged expert-weight
 pool (``--expert-pool paged``: the MoE CUDA kernels on the card) or from
 its dense view (``dense``); ``off`` runs the capacity dispatch:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch qwen3-moe-235b-a22b --reduced --device cpu --expert-pool paged
+      --arch qwen3-moe-235b-a22b --reduced --device cpu --continuous \
+      --expert-pool paged
 
 At full width one card holds 8 of qwen3-moe-235b-a22b's 94 layers:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch qwen3-moe-235b-a22b --layers 8 --expert-pool paged \
-      --requests 8 --prompt-len 1500 --gen 32 --chunk 256
+      --arch qwen3-moe-235b-a22b --layers 8 --continuous \
+      --expert-pool paged --requests 8 --prompt-len 1500 --gen 32 \
+      --chunk 256
 
 Flags of the reference launcher that belong to later slices of the port
 are recognised and rejected with the slice's name.
@@ -41,7 +53,7 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device
 from ..params import init_params
-from ..serve.engine import KERNELS, PagedEngine
+from ..serve.engine import KERNELS, Engine, PagedEngine
 from ..serve.scheduler import PoissonArrivals
 
 # flag -> the ROADMAP slice that ports it
@@ -61,8 +73,6 @@ _LATER_SLICES = {
     "--expert-nsb-slots": "3. Online runahead staging",
     "--expert-runahead": "3. Online runahead staging",
     "--expert-runahead-pages": "3. Online runahead staging",
-    "--batch": "7. The single-batch Engine and the other model families",
-    "--dense": "7. The single-batch Engine and the other model families",
     "--no-donate": "none: PyTorch updates the pools in place",
 }
 
@@ -97,6 +107,27 @@ def build_workload(cfg, args) -> list:
         gen_len=(max(1, args.gen // 2), args.gen), seed=args.seed)
     return [(t, rng.integers(1, cfg.vocab, size=p), g)
             for t, p, g in arrivals]
+
+
+def run_single_batch(cfg, params, args, device) -> Engine:
+    """The reference launcher's default mode: one batch of random
+    prompts (drawn from ``--seed`` on the CPU, so the card and the CPU
+    see the same tokens) through the single-batch ``Engine``."""
+    gen = torch.Generator().manual_seed(args.seed)
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=gen)
+    eng = Engine(cfg, params, max_len=args.prompt_len + args.gen,
+                 sparse=not args.dense, nsb_pages=args.nsb_pages,
+                 kernel=args.kernel, device=device)
+    out = eng.generate({"tokens": tokens}, args.gen)
+    s = eng.stats
+    print(f"[serve] generated {out.shape} tokens; sparse={eng.sparse}")
+    if eng.sparse and s.hot_hit_rate is not None:
+        print(f"[serve] NSB hot-set hit rate {s.hot_hit_rate:.3f} "
+              f"(pages touched {s.pages_touched}, unique-miss "
+              f"{s.nsb_misses}) -> off-chip fetch reduction "
+              f"{100 * s.offchip_reduction:.1f}%")
+    return eng
 
 
 def run(cfg, params, args, device) -> PagedEngine:
@@ -150,6 +181,14 @@ def main(argv=None):
     p.add_argument("--layers", type=int, default=0, metavar="N",
                    help="cut the config to N layers (depth only; one card "
                         "holds 8 layers of qwen3-moe-235b-a22b's experts)")
+    p.add_argument("--batch", type=int, default=4,
+                   help="prompts of the single-batch mode")
+    p.add_argument("--dense", action="store_true",
+                   help="single-batch mode: dense decode attention over "
+                        "the whole cache instead of TopK pages")
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous batching on the paged KV allocator "
+                        "(the PagedEngine) instead of one lockstep batch")
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--rate", type=float, default=0.5,
                    help="Poisson arrivals per scheduler iteration")
@@ -188,6 +227,9 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             p.error(f"{flag} is not ported yet (ROADMAP slice: "
                     f"{slice_name})")
+    if args.expert_pool != "off" and not args.continuous:
+        p.error("--expert-pool needs --continuous (the single-batch "
+                "Engine runs the capacity dispatch)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -196,7 +238,9 @@ def main(argv=None):
         cfg = replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
-    return run(cfg, params, args, device)
+    if args.continuous:
+        return run(cfg, params, args, device)
+    return run_single_batch(cfg, params, args, device)
 
 
 if __name__ == "__main__":

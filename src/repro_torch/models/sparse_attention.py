@@ -1,15 +1,24 @@
-"""TopK sparse-KV decode on the physical page pool: the paged half of the
-reference's ``models/sparse_attention.py``.
+"""TopK sparse-KV decode attention: the port of the reference's
+``models/sparse_attention.py``.
 
-The continuous-batching KV cache is a pool of physical pages shared by
-all requests; each request maps logical page j to physical page
-``bt[j]``.  Selection scores logical pages from the physical page-summary
-pool and returns both index spaces: logical ids feed the causal mask
-(absolute token positions), physical ids feed the gather and are the ids
-the allocator and the NSB accounting count in.
+Approximate per-page scores come from a small label cache (page-pooled
+key summaries), the TopK pages are selected, and attention reads only
+those pages.  Two cache layouts:
 
-:func:`attend_pages_paged` is the plain version of the CUDA kernel in
-``kernels/paged_decode_attn.py``.
+* contiguous (the single-batch engine): a stacked ``[L, B, S, KV, D]``
+  cache; :func:`select_pages`, :func:`attend_pages` and the
+  layer-indexed ``*_full`` variants, with :func:`update_page_summary`
+  keeping the label cache current.  :func:`attend_pages` is the plain
+  version of the CUDA kernel in ``kernels/sparse_decode_attn.py`` with a
+  frontier.
+* paged (the continuous-batching engine): a pool of physical pages
+  shared by all requests; each request maps logical page j to physical
+  page ``bt[j]``.  Selection scores logical pages from the physical
+  page-summary pool and returns both index spaces: logical ids feed the
+  causal mask (absolute token positions), physical ids feed the gather
+  and are the ids the allocator and the NSB accounting count in.
+  :func:`attend_pages_paged` is the plain version of the CUDA kernel in
+  ``kernels/paged_decode_attn.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,99 @@ def topk_lowest_index(s: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(s, dim=-1, descending=True, stable=True).indices[
         ..., :k]
 
+
+# -- contiguous caches ---------------------------------------------------------
+
+def select_pages(q: torch.Tensor, kpage: torch.Tensor, n_pages_valid,
+                 k_pages: int) -> torch.Tensor:
+    """TopK page ids [B,KV,K] int32 per (batch row, KV head); pages at or
+    past ``n_pages_valid`` (an int or a 0-d tensor) score -inf and tie in
+    ``jax.lax.top_k``'s order.  q [B,KV,G,D], kpage [B,NP,KV,D]."""
+    s = page_scores(q, kpage)                       # [B,KV,NP]
+    valid = torch.arange(s.shape[-1], device=s.device) < n_pages_valid
+    s = torch.where(valid, s, float("-inf"))
+    return topk_lowest_index(s, k_pages).to(torch.int32).contiguous()
+
+
+def page_token_positions(idx: torch.Tensor, page: int) -> torch.Tensor:
+    """Absolute token positions ``[..., P, page]`` (int64) of the tokens
+    inside the selected pages ``idx [..., P]``."""
+    return (idx.long()[..., None] * page
+            + torch.arange(page, device=idx.device))
+
+
+def gather_pages(cache: torch.Tensor, idx: torch.Tensor,
+                 page: int) -> torch.Tensor:
+    """cache [B,S,KV,D], idx [B,KV,P] -> the pages [B,KV,P,page,D]."""
+    b, s, kv, d = cache.shape
+    cp = cache.reshape(b, s // page, page, kv, d)
+    bi = torch.arange(b, device=cache.device)[:, None, None]
+    hi = torch.arange(kv, device=cache.device)[None, :, None]
+    # advanced indices around a slice broadcast to the front
+    return cp[bi, idx.long(), :, hi, :]
+
+
+def attend_pages(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 idx: torch.Tensor, pos, page: int) -> torch.Tensor:
+    """Attend q [B,KV,G,D] to the gathered pages idx [B,KV,P] of k/v
+    [B,S,KV,D]; tokens at absolute positions past ``pos`` are masked (a
+    selected page may straddle the frontier).  Returns [B,KV,G,D] in q's
+    dtype.  Unlike the reference's ``attend_pages``, which only ever sees
+    float caches, int8 K/V are dequantised here, as in its ``*_full``
+    variant."""
+    d = q.shape[-1]
+    kg = kv_dequant_f32(gather_pages(k, idx, page))
+    vg = kv_dequant_f32(gather_pages(v, idx, page))
+    scores = torch.einsum("bkgd,bkptd->bkgpt", q.float(), kg) / (d ** 0.5)
+    mask = page_token_positions(idx, page) <= pos    # [B,KV,P,page]
+    scores = torch.where(mask[:, :, None], scores, float("-inf"))
+    flat = scores.reshape(*scores.shape[:-2], -1)
+    w = torch.softmax(flat, dim=-1).reshape(scores.shape)
+    return torch.einsum("bkgpt,bkptd->bkgd", w, vg).to(q.dtype)
+
+
+def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kpage: torch.Tensor, pos: int, *, page: int,
+                  k_pages: int) -> torch.Tensor:
+    """Select + attend: q [B,KV,G,D] -> [B,KV,G,D]."""
+    idx = select_pages(q, kpage, pos // page + 1, k_pages)
+    return attend_pages(q, k, v, idx, pos, page)
+
+
+def gather_pages_full(cache_full: torch.Tensor, li: int, idx: torch.Tensor,
+                      page: int) -> torch.Tensor:
+    """cache_full [L,B,S,KV,D], idx [B,KV,P] -> [B,KV,P,page,D] of layer
+    ``li`` (a view of the layer, then one gather)."""
+    return gather_pages(cache_full[li], idx, page)
+
+
+def attend_pages_full(q, k_full, v_full, li: int, idx, pos,
+                      page: int) -> torch.Tensor:
+    """q [B,KV,G,D] attends the gathered pages of layer ``li`` of the
+    stacked caches."""
+    return attend_pages(q, k_full[li], v_full[li], idx, pos, page)
+
+
+def sparse_decode_full(q, k_full, v_full, kpage_li, li: int, pos: int, *,
+                       page: int, k_pages: int) -> torch.Tensor:
+    """Layer-indexed sparse decode: ``kpage_li`` [B,NP,KV,D] is this
+    layer's label cache; K/V pages gather from the stacked caches."""
+    idx = select_pages(q, kpage_li, pos // page + 1, k_pages)
+    return attend_pages_full(q, k_full, v_full, li, idx, pos, page)
+
+
+def update_page_summary(kpage: torch.Tensor, k_new: torch.Tensor, pos: int,
+                        page: int) -> torch.Tensor:
+    """Running mean of keys per page, updated **in place** (the reference
+    returns a new array): kpage [B,NP,KV,D] float32; k_new [B,1,KV,D]
+    written at absolute position ``pos``.  Returns ``kpage``."""
+    p_id, off = divmod(int(pos), page)
+    kpage[:, p_id] = (kpage[:, p_id] * float(off)
+                      + k_new[:, 0].to(kpage.dtype)) / (off + 1.0)
+    return kpage
+
+
+# -- paged pools ---------------------------------------------------------------
 
 def select_pages_blocktable(q: torch.Tensor, kpage_pool_li: torch.Tensor,
                             block_table: torch.Tensor,

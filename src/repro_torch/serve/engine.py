@@ -1,6 +1,18 @@
-"""Continuous-batching serve engine on a paged KV pool (synchronous).
+"""Serving engines with TopK sparse-KV decode: the port of the
+reference's ``serve/engine.py``.
 
-The port of the reference's ``serve/engine.py::PagedEngine`` main path.
+:class:`Engine` is the single-batch baseline: one fixed batch prefills
+together (``api.prefill_fn``) into a contiguous ``[L, B, max_len, KV,
+D]`` cache and decodes in lockstep (``api.decode_fn``), greedy, until
+the batch drains.  With ``kernel="cuda"`` its sparse decode runs the
+``sparse_decode_attn`` kernel in every layer, its prefill and dense
+decode ``flash_prefill``.  Before each sparse step it scores the layer-0
+label cache against an all-ones query (the traffic proxy) and counts
+the selected pages against the NSB demand-LRU.  Host syncs: the layer-0
+proxy selection and the sampled tokens, once a step.
+
+:class:`PagedEngine` is the continuous-batching engine, the reference's
+``PagedEngine`` main path (synchronous).
 Requests arrive through an admission queue (:mod:`.scheduler`); each
 iteration mixes prefill chunks and one ragged decode batch under a token
 budget; the KV cache is a pool of physical pages managed by
@@ -52,8 +64,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..kernels.flash_prefill import flash_prefill
 from ..kernels.paged_decode_attn import paged_decode_attn
+from ..models import api
 from ..models import layers as mlayers
 from ..models import sparse_attention, transformer
 from ..params import pack_experts, torch_dtype
@@ -106,6 +118,119 @@ class ServeStats:
         before traffic."""
         tot = self.demand_bytes
         return (self.nsb_hits * self.row_bytes) / tot if tot else None
+
+
+class Engine:
+    """Single-batch baseline: batched prefill + lockstep sparse decode.
+
+    * ``max_len`` — cache positions, allocated once: prompt plus
+      generated tokens must fit; with the sparse path a multiple of
+      ``cfg.kv_page``.
+    * ``sparse`` — TopK sparse decode (when ``cfg.sparse_kv``), else
+      dense attention over the whole cache.
+    * ``nsb_pages`` — the demand-LRU the layer-0 proxy pages are scored
+      against; ``kv_dtype_bytes`` — the K/V element size the byte
+      metrics charge.
+    * ``kernel="cuda" | "torch"`` — the port's kernels (which run their
+      plain versions for CPU tensors) or the plain versions everywhere.
+    * ``device`` — where weights, cache and compute live; the CUDA card
+      by default, raising without one.
+    * ``attend_probe`` (attribute, default None) — a callable
+      ``probe(layer, inputs)`` run after each sparse decode layer's
+      attention with that layer's inputs and output, for checks.
+
+    ``capture_trace`` (the NVR simulator capture) belongs to a later
+    slice and raises.
+    """
+
+    def __init__(self, cfg: ArchConfig, params: dict, max_len: int = 1024,
+                 sparse: bool = True, nsb_pages: int = 64,
+                 capture_trace: bool = False, kv_dtype_bytes: int = 2,
+                 kernel: str = "cuda",
+                 device: str | torch.device = "cuda") -> None:
+        if capture_trace:
+            raise not_ported("capture_trace (NVR simulator capture)",
+                             "3. Online runahead staging")
+        api.check_family(cfg)
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, got "
+                             f"{kernel!r}")
+        self.sparse = sparse and cfg.sparse_kv
+        if self.sparse and max_len % cfg.kv_page:
+            raise ValueError(f"max_len {max_len} is not a multiple of "
+                             f"kv_page {cfg.kv_page}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = _to_device(params, self.device)
+        self._layers = transformer.layer_params(self.params)
+        self.max_len = max_len
+        self.kernel = kernel
+        self.stats = ServeStats(
+            row_bytes=2 * cfg.kv_page * cfg.hd * kv_dtype_bytes)
+        self.hot = PageCache(nsb_pages)
+        self._seen_pages: set[int] = set()
+        self.attend_probe = None
+        self.cache = None
+        self.logits = None              # float32 logits of the last step
+        self._last = None
+
+    def prefill(self, batch: dict) -> torch.Tensor:
+        """Prefill ``{"tokens": [B, S]}`` (numpy or torch ids) into a new
+        cache of ``max_len`` positions; returns the first sampled tokens
+        [B] (on the device)."""
+        tokens = batch["tokens"]
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.from_numpy(np.asarray(tokens))
+        tokens = tokens.to(self.device, torch.int64)
+        self.logits, self.cache = api.prefill_fn(
+            self.cfg, self.params, {"tokens": tokens}, max_len=self.max_len,
+            kernel=self.kernel, layers=self._layers)
+        # torch.argmax, like jnp.argmax, takes the first index of a tie
+        self._last = torch.argmax(self.logits, dim=-1)
+        return self._last
+
+    def _track_pages(self) -> None:
+        """NSB accounting: which pages would the next step's selection
+        touch (the layer-0 label cache scored against an all-ones query
+        as the traffic proxy, before the step writes its token)."""
+        cfg = self.cfg
+        kp0 = self.cache["kpage"][0]
+        b = kp0.shape[0]
+        q = torch.ones((b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                        cfg.hd), dtype=kp0.dtype, device=kp0.device)
+        n_valid = self.cache["pos"] // cfg.kv_page + 1
+        k_pages = min(cfg.kv_topk_pages, kp0.shape[1])
+        idx = sparse_attention.select_pages(q, kp0, n_valid, k_pages)
+        uniq = np.unique(idx.cpu().numpy())
+        self._seen_pages.update(int(p) for p in uniq)
+        self.stats.pages_unique = len(self._seen_pages)  # run footprint
+        for p in uniq:
+            self.stats.pages_touched += 1
+            if self.hot.touch(int(p)):
+                self.stats.nsb_hits += 1
+            else:
+                self.stats.nsb_misses += 1
+
+    def step(self) -> torch.Tensor:
+        """One lockstep decode step of the whole batch; returns the
+        sampled tokens [B] (on the device)."""
+        if self.sparse:
+            self._track_pages()
+        self.logits, self.cache = api.decode_fn(
+            self.cfg, self.params, self.cache, self._last,
+            sparse=self.sparse, kernel=self.kernel, layers=self._layers,
+            probe=self.attend_probe)
+        self._last = torch.argmax(self.logits, dim=-1)
+        self.stats.steps += 1
+        self.stats.tokens_out += int(self._last.shape[0])
+        return self._last
+
+    def generate(self, batch: dict, n_steps: int) -> np.ndarray:
+        """Prefill, then ``n_steps - 1`` decode steps: tokens [B, n_steps]."""
+        toks = [self.prefill(batch)]
+        for _ in range(n_steps - 1):
+            toks.append(self.step())
+        return np.stack([t.cpu().numpy() for t in toks], axis=1)
 
 
 @dataclass
@@ -268,16 +393,6 @@ def _decode_attend(kernel: str):
         sparse_attention.attend_pages_paged(q, kp, vp, idx, phys, pos, page)
 
 
-def _prefill_attend(kernel: str):
-    if kernel == "cuda":
-        return lambda q, k, v, start, chunk, softcap: flash_prefill(
-            q, k, v, q_offset=start, causal=True, chunk=chunk,
-            logit_softcap=softcap)
-    return lambda q, k, v, start, chunk, softcap: mlayers.chunked_attention(
-        q, k, v, causal=True, q_offset=start, chunk=chunk,
-        logit_softcap=softcap)
-
-
 class PagedEngine:
     """Continuous-batching serve engine on a paged KV allocator.
 
@@ -375,8 +490,7 @@ class PagedEngine:
             # one buffer behind the expert weights, which the expert
             # pool wraps (a copy only when the caller's were not packed)
             self.params["layers"] = pack_experts(self.params["layers"])
-        self._layers = [{k: v[li] for k, v in self.params["layers"].items()}
-                        for li in range(cfg.n_layers)]
+        self._layers = transformer.layer_params(self.params)
         self.max_len = max_len
         self.page = cfg.kv_page
         self.n_logical = max_len // self.page
@@ -388,7 +502,7 @@ class PagedEngine:
                                           prefix_cache=prefix_cache)
         self.kernel = kernel
         self._attend_decode = _decode_attend(kernel)
-        self._attend_prefill = _prefill_attend(kernel)
+        self._attend_prefill = transformer.attention(kernel)
         self.attend_probe = None
         self.row_buckets = (scheduler_mod.row_buckets(max_batch)
                             if row_bucketing else ())

@@ -17,17 +17,21 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.gather_rows import gather_rows, gather_rows_plain
 from repro_torch.kernels.moe_dispatch import (moe_paged_down,
                                               moe_paged_down_plain,
                                               moe_paged_gateup,
                                               moe_paged_gateup_plain)
 from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+from repro_torch.kernels.sparse_decode_attn import (sparse_decode_attn,
+                                                    sparse_decode_attn_plain)
 from repro_torch.models.layers import chunked_attention
-from repro_torch.models.sparse_attention import (attend_pages_paged,
-                                                 kv_quant,
+from repro_torch.models.sparse_attention import (attend_pages,
+                                                 attend_pages_paged,
+                                                 kv_quant, select_pages,
                                                  select_pages_blocktable)
 from repro_torch.params import init_params
-from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.engine import Engine, PagedEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -220,3 +224,91 @@ def test_reduced_moe_engine_card_matches_cpu(dev):
         assert a.out_tokens == b.out_tokens
         np.testing.assert_allclose(a.last_logits, b.last_logits, rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b,kv,g,d,s,p,page", [
+    (2, 2, 4, 64, 128, 6, 8), (1, 4, 2, 128, 256, 8, 16),
+    (3, 1, 8, 64, 64, 4, 1), (2, 2, 6, 128, 160, 5, 16),
+    (1, 2, 12, 32, 32, 3, 4)])
+def test_sparse_decode_kernel_matches_plain(dev, kv_dtype, b, kv, g, d, s,
+                                            p, page):
+    """Both contracts: every gathered token (pos=None, repeated ids
+    allowed) and a frontier that cuts a selected page; G over 8 runs in
+    two head chunks."""
+    gen = torch.Generator(device=dev).manual_seed(s + p)
+    q_dtype = torch.float32 if kv_dtype == "float32" else torch.bfloat16
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev).to(q_dtype)
+    k, v = (kv_quant(torch.randn((b, s, kv, d), generator=gen, device=dev),
+                     _DT[kv_dtype]) for _ in range(2))
+    idx = torch.randint(0, s // page, (b, kv, p), generator=gen,
+                        device=dev).to(torch.int32)
+    pos = s // 2 + page // 2
+    n = sparse_decode_attn.launches
+    got = sparse_decode_attn(idx, q, k, v, page_size=page)
+    sel = select_pages(q, torch.randn((b, s // page, kv, d), generator=gen,
+                                      device=dev), pos // page + 1, p)
+    got_pos = sparse_decode_attn(sel, q, k, v, page_size=page, pos=pos)
+    torch.cuda.synchronize()
+    assert sparse_decode_attn.launches == n + 2
+    tol = _tol(q_dtype)
+    for a, want in (
+            (got, sparse_decode_attn_plain(idx, q, k, v, page_size=page)),
+            (got_pos, attend_pages(q, k, v, sel, pos, page))):
+        assert a.dtype == q.dtype and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_sparse_decode_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.randn((1, 2, 2, 32), device=dev)
+    k = torch.randn((1, 16, 2, 32), device=dev)
+    idx = torch.zeros((1, 2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        sparse_decode_attn(idx.long(), q, k, k, page_size=4)
+    k16 = k[..., :16].contiguous()
+    with pytest.raises(ValueError):
+        sparse_decode_attn(idx, q[..., :16].contiguous(), k16, k16,
+                           page_size=4)
+    with pytest.raises(ValueError):
+        sparse_decode_attn(idx, q, k, k, page_size=5)
+    with pytest.raises(ValueError):
+        sparse_decode_attn(idx, q, k.transpose(1, 2), k.transpose(1, 2),
+                           page_size=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,d,k", [(32, 128, 8), (64, 256, 24), (16, 7, 5),
+                                   (151, 1536, 300)])
+def test_gather_rows_kernel_bitwise(dev, dtype, n, d, k):
+    """16-byte words where rows allow, narrower words for odd rows (d=7);
+    int32 and int64 ids, repeats included: bitwise the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(n + d)
+    table = kv_quant(torch.randn((n, d), generator=gen, device=dev),
+                     _DT[dtype])
+    idx = torch.randint(0, n, (k,), generator=gen, device=dev)
+    m = gather_rows.launches
+    for ids in (idx, idx.to(torch.int32)):
+        got = gather_rows(ids, table)
+        assert got.dtype == table.dtype
+        assert torch.equal(got, gather_rows_plain(ids, table))
+    assert gather_rows.launches == m + 2
+
+
+def test_reduced_single_batch_engine_card_matches_cpu(dev):
+    cfg = get_config("qwen2-1.5b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, size=(2, 32))
+    for sparse in (True, False):
+        engines = [Engine(cfg, params, max_len=48, sparse=sparse,
+                          nsb_pages=16, device=device)
+                   for device in ("cuda", "cpu")]
+        n = sparse_decode_attn.launches
+        outs = [eng.generate({"tokens": toks}, 12) for eng in engines]
+        np.testing.assert_array_equal(outs[0], outs[1])
+        np.testing.assert_allclose(engines[0].logits.cpu().numpy(),
+                                   engines[1].logits.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        assert vars(engines[0].stats) == vars(engines[1].stats)
+        assert sparse_decode_attn.launches - n == (
+            11 * cfg.n_layers if sparse else 0)

@@ -269,8 +269,9 @@ def test_later_slice_arguments_raise(weights, kwargs):
 
 def test_launcher_on_cpu(capsys):
     eng = tserve.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
-                       "cpu", "--requests", "6", "--prompt-len", "16",
-                       "--gen", "4", "--shared-prefix", "2"])
+                       "cpu", "--continuous", "--requests", "6",
+                       "--prompt-len", "16", "--gen", "4", "--shared-prefix",
+                       "2"])
     out = capsys.readouterr().out
     assert "6/6 requests" in out and "NSB hot-set hit rate" in out
     assert eng.metrics()["n_finished"] == 6
@@ -278,7 +279,8 @@ def test_launcher_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--tp=2", "--runahead=nvr", "--spill=8",
                                   "--executor=async", "--capture",
-                                  "--expert-runahead=router", "--batch=2"])
+                                  "--expert-runahead=router",
+                                  "--policy=slo_fair"])
 def test_launcher_rejects_later_slice_flags(flag):
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",

@@ -389,8 +389,9 @@ def test_engine_expert_validation(weights):
 
 def test_launcher_moe_on_cpu(capsys):
     eng = tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                       "--requests", "5", "--prompt-len", "16", "--gen", "4",
-                       "--expert-pool", "paged", "--layers", "1"])
+                       "--continuous", "--requests", "5", "--prompt-len",
+                       "16", "--gen", "4", "--expert-pool", "paged",
+                       "--layers", "1"])
     out = capsys.readouterr().out
     assert "5/5 requests" in out and "expert pool=paged" in out
     m = eng.metrics()

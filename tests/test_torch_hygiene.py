@@ -73,8 +73,9 @@ def test_nvcc_command_targets_hopper(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[-1].endswith("csrc/paged_decode_attn.cu")
     assert {"-shared", "-O3"} <= set(cmd)
-    assert _build.sources() == ["flash_prefill", "moe_dispatch",
-                                "paged_decode_attn"]
+    assert _build.sources() == ["flash_prefill", "gather_rows",
+                                "moe_dispatch", "paged_decode_attn",
+                                "sparse_decode_attn"]
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch):
