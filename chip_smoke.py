@@ -33,18 +33,24 @@ final result line):
    8 requests on qwen3-moe-235b-a22b at full width, cut to 8 layers,
    in bfloat16 — all four kernels' launches, decode and prefill rates,
    expert hit rates, the host time of the expert-page accounting, peak
-   memory and one profiled decode step;
+   memory and one profiled decode step; then one fresh prefill chunk
+   profiled through the grouped GEMM and through ``torch.matmul``: the
+   kernel's device-time cost a chunk;
 10. teacher-forced per-layer check of the MoE kernels in all 8 layers;
 11. 2 layers at full width in float32: ``kernel="cuda"`` against
-    ``"torch"`` (routed experts and logits), and dense against paged
-    experts with ``kernel="torch"`` (bitwise);
+    ``"torch"`` (routed experts and logits; the cuda route's prefill runs
+    the grouped GEMM), and dense against paged experts with
+    ``kernel="torch"`` (bitwise);
 12. reduced qwen3-moe in float32 with paged experts: card against CPU;
 13. the single-batch path's new kernels against their plain versions:
     ``sparse_decode_attn`` at qwen2-1.5b's decode shapes (bfloat16,
     float32 and int8 K/V, with the frontier, and the TPU kernel's
-    contract without it) and ``gather_rows`` at the embedding lookups of
-    a decode step and of the batched prefill, timed beside their bound,
-    the plain versions and a PyTorch yardstick;
+    contract without it), at gemma-7b's head_dim 256 and at
+    qwen3-moe's heads (KV=4, G=16) on the single-batch MoE cache, and
+    ``gather_rows`` at the embedding lookups of a decode step and of the
+    batched prefill (and on ids outside the table, zero rows as on the
+    CPU), timed beside their bound, the plain versions and a PyTorch
+    yardstick;
 14. the single-batch ``Engine`` on qwen2-1.5b at full width in bfloat16:
     a batch of 8 prompts of 1536 tokens prefilled together, 32 tokens
     decoded in lockstep with TopK sparse attention, then a few dense
@@ -55,7 +61,29 @@ final result line):
 16. full width in float32, ``kernel="cuda"`` against ``"torch"``: TopK
     selections of every layer, logits and tokens;
 17. the reduced single-batch ``Engine`` (sparse and dense): the card
-    against the CPU.
+    against the CPU;
+18. the capacity dispatch's grouped GEMM ``moe_dispatch_matmul`` against
+    its plain version at the three shapes the MoE paths give it (a
+    paged prefill chunk, the single-batch prefill and decode of
+    qwen3-moe-235b-a22b), bfloat16 and float32, through the packed
+    experts' strided gate, up and down views; timed beside its bound,
+    the plain version and ``torch.matmul`` over ``[E, B*cap, D]``;
+19. the single-batch ``Engine`` on qwen3-moe-235b-a22b at full width,
+    cut to 8 layers, in bfloat16: 8 prompts of 1024 tokens prefilled
+    together, 16 tokens decoded in lockstep with TopK sparse attention
+    and the capacity dispatch — launches, decode ms/step, prefill
+    tokens/s, peak memory and one profiled decode step;
+20. teacher-forced check of every kernel of that path in all 8 layers:
+    the grouped GEMMs and ``flash_prefill`` (B=8, S=1024, H=64, KV=4)
+    of one prefill, then the grouped GEMMs and ``sparse_decode_attn``
+    (KV=4, G=16) of one decode step, each call's inputs to the kernel
+    and the plain version;
+21. ``gather_spmm`` against its plain version at the kernel bench's
+    shape and at a pruned qwen2-1.5b down projection over a prefill
+    chunk, timed beside its bound, the plain version and
+    ``torch.sparse.mm`` on the same matrix in CSR;
+22. the port's kernel quickstart (``repro_torch.launch.quickstart``),
+    the NVR simulator and the two kernel demos, on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_JSON=<path>`` in
@@ -96,10 +124,15 @@ GATEUP_TPU = "src/repro/kernels/moe_dispatch.py:147"
 DOWN_TPU = "src/repro/kernels/moe_dispatch.py:213"
 SPARSE_TPU = "src/repro/kernels/sparse_decode_attn.py:98"
 GATHER_TPU = "src/repro/kernels/gather_rows.py:45"
+DISPATCH_TPU = "src/repro/kernels/moe_dispatch.py:81"
+SPMM_TPU = "src/repro/kernels/gather_spmm.py:52"
 
 # the single-batch path: 8 prompts of 1536 tokens, 32 generated, TopK 64
 # of 98 pages of 16
 SB_BATCH, SB_PROMPT, SB_GEN, SB_DENSE_STEPS = 8, 1536, 32, 4
+
+# the single-batch MoE path: 8 prompts of 1024 tokens, 16 generated
+MSB_BATCH, MSB_PROMPT, MSB_GEN = 8, 1024, 16
 
 record: dict = {"phases": {}}
 failures: list[str] = []
@@ -371,8 +404,10 @@ def full_engine(cfg, params, **kw):
                        device="cuda", **kw)
 
 
-def profile_step(eng) -> dict:
-    """Device busy share and top kernels of one ``eng.step()``."""
+def profile_step(eng, count: tuple = ()) -> dict:
+    """Device busy share and top kernels of one ``eng.step()``; with
+    ``count``, also the device ms of the kernels whose names hold each
+    of those substrings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -390,6 +425,8 @@ def profile_step(eng) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
     if not spans:
         return {"busy_share": None, "wall_ms": wall_us / 1e3}
+    counted = {c: sum(us for n, us in by_name.items() if c in n) / 1e3
+               for c in count}
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, t in spans[1:]:
@@ -402,7 +439,8 @@ def profile_step(eng) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"busy_share": busy / wall_us, "wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3, "n_kernels": len(spans),
-            "top": [{"name": n[:90], "ms": us / 1e3} for n, us in top]}
+            "top": [{"name": n[:90], "ms": us / 1e3} for n, us in top],
+            "counted_ms": counted}
 
 
 def drive_serve(eng, work, kernels: dict) -> dict:
@@ -895,13 +933,15 @@ def phase_moe_kernels() -> None:
 def moe_kernels() -> dict:
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.gather_rows import gather_rows
-    from repro_torch.kernels.moe_dispatch import (moe_paged_down,
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch_matmul,
+                                                  moe_paged_down,
                                                   moe_paged_gateup)
     from repro_torch.kernels.paged_decode_attn import paged_decode_attn
     return {"paged_decode_attn": paged_decode_attn,
             "flash_prefill": flash_prefill,
             "moe_paged_gateup": moe_paged_gateup,
             "moe_paged_down": moe_paged_down,
+            "moe_dispatch_matmul": moe_dispatch_matmul,
             "gather_rows": gather_rows}
 
 
@@ -959,7 +999,9 @@ def phase_moe_serve(state: dict) -> None:
         f"({st.steps * L}), paged_decode_attn "
         f"{launches['paged_decode_attn']} ({st.steps * L}), flash_prefill "
         f"{launches['flash_prefill']} (prefill chunks x {L} = "
-        f"{st.prefill_calls * L}), gather_rows {launches['gather_rows']} "
+        f"{st.prefill_calls * L}), moe_dispatch_matmul "
+        f"{launches['moe_dispatch_matmul']} (prefill chunks x 3 x {L} = "
+        f"{st.prefill_calls * 3 * L}), gather_rows {launches['gather_rows']} "
         f"({st.steps + st.prefill_calls})")
     acc = np.asarray(account_s) * 1e3
     log(f"[moe serve] expert pages: {st.expert_pages_touched} unique-per-"
@@ -994,12 +1036,63 @@ def phase_moe_serve(state: dict) -> None:
     assert launches["moe_paged_down"] == st.steps * L
     assert launches["paged_decode_attn"] == st.steps * L
     assert launches["flash_prefill"] == st.prefill_calls * L
+    assert launches["moe_dispatch_matmul"] == 3 * st.prefill_calls * L
     assert launches["gather_rows"] == st.steps + st.prefill_calls
     assert all(np.isfinite(r.last_logits).all()
                for r in eng.requests.values())
     assert peak < 80
     state["moe_engine"] = eng
     state["moe_work"] = work
+    moe_chunk_cost(eng, cfg)
+
+
+# device kernels that run the expert products: the grouped GEMM, and the
+# cuBLAS GEMMs of torch.matmul on an H100 (nvjet, sm90_xmma, cutlass)
+GEMM_NAMES = ("grouped_mma", "nvjet", "gemm", "cutlass")
+
+
+def moe_chunk_cost(eng, cfg) -> None:
+    """The grouped GEMM's cost per prefill chunk: one fresh CHUNK-token
+    prompt profiled through the kernel, then through ``torch.matmul``
+    (``moe_ffn``'s "torch" route for the expert products only), twice
+    each, alternating; the second of each is kept."""
+    import numpy as np
+
+    from repro_torch.models import moe
+    products = moe._expert_products
+    rng = np.random.default_rng(1)
+    runs = {}
+    try:
+        for route in ("cuda", "torch", "cuda", "torch"):
+            moe._expert_products = products if route == "cuda" else (
+                lambda xe, p, kernel: products(xe, p, "torch"))
+            eng.submit(rng.integers(1, cfg.vocab, size=CHUNK), 1,
+                       arrival=eng.now)
+            n_chunks = eng.stats.prefill_calls
+            runs[route] = profile_step(eng, GEMM_NAMES)
+            assert eng.stats.prefill_calls == n_chunks + 1
+            while eng.scheduler.has_work:
+                eng.step()
+    finally:
+        moe._expert_products = products
+    k, t = runs["cuda"], runs["torch"]
+    if k["busy_share"] is None or t["busy_share"] is None:
+        log("[moe chunk cost] not measured (the profiler recorded no "
+            "device events)")
+        record["moe_chunk_cost"] = None
+        return
+    diff = k["device_ms"] - t["device_ms"]
+    n_per_prompt = -(-PROMPT // CHUNK)
+    log(f"[moe chunk cost] one {CHUNK}-token prefill chunk, {cfg.n_layers} "
+        f"layers: device {k['device_ms']:.2f} ms (wall {k['wall_ms']:.2f}) "
+        f"with the grouped GEMM, {t['device_ms']:.2f} ms (wall "
+        f"{t['wall_ms']:.2f}) with torch.matmul; GEMM kernels "
+        f"{k['counted_ms']} against {t['counted_ms']}; the kernel costs "
+        f"{diff:.2f} ms of device time a chunk, {diff * n_per_prompt:.1f} ms "
+        f"a {PROMPT}-token prompt ({n_per_prompt} chunks)")
+    record["moe_chunk_cost"] = {"kernel": k, "torch_matmul": t,
+                                "device_ms_added": diff,
+                                "chunks_per_prompt": n_per_prompt}
 
 
 def phase_moe_teacher_forced(state: dict) -> None:
@@ -1047,12 +1140,13 @@ def phase_moe_f32(state: dict) -> None:
     import numpy as np
     import torch
 
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_matmul
     from repro_torch.params import init_params
     cfg = moe_config(n_layers=2, dtype="float32")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
                          "cuda")
     max_len = -(-(PROMPT + GEN) // cfg.kv_page) * cfg.kv_page
-    runs = {}
+    runs, grouped = {}, {}
     for name, kernel, mode in (("cuda", "cuda", "paged"),
                                ("torch", "torch", "paged"),
                                ("dense", "torch", "dense")):
@@ -1066,7 +1160,10 @@ def phase_moe_f32(state: dict) -> None:
             return commit(pairs, logits, sel, rb, es)
         eng._commit_decode = keep
         # every prompt prefills in one chunk, so all rows decode together
+        n = moe_dispatch_matmul.launches
         eng.run([(0.0, p, 2) for _, p, _ in state["moe_work"]])
+        grouped[name] = (moe_dispatch_matmul.launches - n,
+                         3 * cfg.n_layers * eng.stats.prefill_calls)
         assert eng.stats.steps == 1
         logits = np.stack([eng.requests[i].last_logits
                            for i in sorted(eng.requests)])
@@ -1084,12 +1181,15 @@ def phase_moe_f32(state: dict) -> None:
     log(f"[moe f32] {MOE_ARCH} full width, 2 layers, f32, first decode "
         f"step: kernel=cuda vs kernel=torch: {n_diff} of {n_sets} "
         f"(layer, row) routed expert sets differ, logits "
-        f"relative L2 {rel:.3e} (limit 1e-4), tokens equal {tc == tt}; "
-        f"kernel=torch dense vs paged: tokens, logits and routed ids "
-        f"bitwise equal {bitwise}")
+        f"relative L2 {rel:.3e} (limit 1e-4), tokens equal {tc == tt} "
+        f"(prefill grouped GEMMs through the kernel: {grouped['cuda'][0]} "
+        f"of {grouped['cuda'][1]}); kernel=torch dense vs paged: tokens, "
+        f"logits and routed ids bitwise equal {bitwise}")
     record["moe_f32"] = {"esel_differ": n_diff, "logits_rel_l2": rel,
                          "tokens_equal": tc == tt,
                          "dense_paged_bitwise": bitwise}
+    assert grouped["cuda"][0] == grouped["cuda"][1] > 0
+    assert grouped["torch"][0] == grouped["dense"][0] == 0
     assert n_diff == 0 and np.array_equal(ec, et), "routed ids differ"
     assert rel <= 1e-4, f"logits relative L2 {rel:.3e} > 1e-4"
     assert tc == tt, "tokens differ"
@@ -1185,6 +1285,40 @@ def phase_sb_kernels() -> None:
                  "tol": tol, "ok": ok})
             if not ok:
                 bad.append(f"sparse_decode_attn {dtype_name(kv_dt)} {what}")
+    # gemma-7b's heads (16 KV heads, G=1, head_dim 256): 4 query heads a
+    # block, 8 elements a lane; qwen3-moe's (KV=4, G=16) at the
+    # single-batch MoE path's cache: 16 query heads split over two blocks
+    heads = (("gemma-7b heads B=8 KV=16 G=1 D=256", "D=256",
+              dict(KV=16, G=1, D=256)),
+             (f"qwen3-moe heads B=8 KV=4 G=16 D=128 S={MSB_PROMPT + MSB_GEN}",
+              "KV=4 G=16", dict(KV=4, G=16, S=MSB_PROMPT + MSB_GEN,
+                                pos=MSB_PROMPT + 15)))
+    for shape_tag, case, kw in heads:
+        for kv_dt in (torch.bfloat16, torch.int8):
+            c = sparse_case(gen, kv_dt, torch.bfloat16, **kw)
+            q, k, v, idx, pos = (c["q"], c["k"][0], c["v"][0], c["idx"],
+                                 c["pos"])
+            page, tol = c["page"], 1e-2
+            for what, got, want in (
+                    (f"{case} pos", sparse_decode_attn(
+                        idx, q, k, v, page_size=page, pos=pos),
+                     attend_pages(q, k, v, idx, pos, page)),
+                    (f"{case} no frontier", sparse_decode_attn(
+                        idx, q, k, v, page_size=page),
+                     sparse_decode_attn_plain(idx, q, k, v,
+                                              page_size=page))):
+                torch.cuda.synchronize()
+                err, ok = close_enough(got, want, tol)
+                log(f"[sparse_decode_attn] {shape_tag} {dtype_name(kv_dt)} "
+                    f"K/V, {what}: max |err| {err:.3e} (tolerance {tol:g} "
+                    f"abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
+                record.setdefault("sparse_checks", []).append(
+                    {"kv": dtype_name(kv_dt), "case": what,
+                     "max_abs_err": err, "tol": tol, "ok": ok})
+                if not ok:
+                    bad.append(f"sparse_decode_attn {dtype_name(kv_dt)} "
+                               f"{what}")
+            del c, q, k, v
     # timing at the main path's bf16 cache, rotating over 8 layers
     # (~200 MB) so pages come from device memory, not L2
     c = sparse_case(gen, torch.bfloat16, torch.bfloat16, n_layers=8)
@@ -1256,6 +1390,18 @@ def phase_sb_kernels() -> None:
             f"{row['plain_ms']:.4f} ms, bound {bound:.5f} ms (bytes: "
             f"{nbytes}), library torch.index_select {lib_ms:.4f} ms")
     record["gather_rows"] = record["gather_rows_prefill"]
+    # ids outside [0, N): zero rows on the card, as on the CPU
+    n = cfg.vocab
+    ids = torch.tensor([5, -1, n, n + 7, n - 1], device="cuda")
+    got = gather_rows(ids, table)
+    torch.cuda.synchronize()
+    same = (torch.equal(got, gather_rows_plain(ids, table))
+            and not bool(got[1:4].any()))
+    log(f"[gather_rows] ids {ids.tolist()} (N = {n}): zero rows for the "
+        f"ids outside [0, N), bitwise equal to the plain version: {same}")
+    record["gather_rows_out_of_range_equal"] = same
+    if not same:
+        bad.append("gather_rows out of range")
     del table
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -1499,6 +1645,385 @@ def phase_sb_reduced_cpu() -> None:
         assert r["max_rel_err"] <= 1e-4
 
 
+# -- phases 18-20: the capacity dispatch's grouped GEMM on qwen3-moe ---------
+
+def dispatch_shapes(cfg) -> list:
+    """(tag, rows per expert) of the grouped GEMMs the MoE paths run: a
+    paged prefill chunk (one request, CHUNK tokens), and the single-batch
+    prefill and decode step (MSB_BATCH rows)."""
+    from repro_torch.models.moe import _capacity
+    e, k = cfg.n_experts, cfg.top_k
+    return [("paged prefill chunk", _capacity(CHUNK, k, e, 1.25)),
+            ("single-batch prefill",
+             MSB_BATCH * _capacity(MSB_PROMPT, k, e, 1.25)),
+            ("single-batch decode", MSB_BATCH * _capacity(1, k, e, 1.25))]
+
+
+def packed_experts(gen, dtype, cfg) -> dict:
+    """One layer's experts in the port's packed layout
+    (``params._expert_views``): gate and up are [E, D, F] views of
+    [E, F, D] memory, down is [E, F, D]; std D**-0.5."""
+    import torch
+
+    from repro_torch.params import _expert_views
+    e, f, d = cfg.n_experts, cfg.d_ff_expert, cfg.d_model
+    rows = torch.empty((f * (1 + e * 3), d), dtype=dtype, device="cuda")
+    for a in range(0, rows.shape[0], 1 << 16):
+        b = min(rows.shape[0], a + (1 << 16))
+        rows[a:b] = torch.randn((b - a, d), generator=gen,
+                                device="cuda") * d ** -0.5
+    return {k: v[0] for k, v in _expert_views(rows, 1, e, f).items()}
+
+
+def dispatch_bound(x, w, n_out) -> tuple[float, str, dict]:
+    """Least time of one grouped GEMM: x, every expert's weights and the
+    output moved once; two flops per multiply-add of every row."""
+    t, k = x.shape
+    e, _, n = w.shape
+    item = x.element_size()
+    nbytes = (x.numel() + e * k * n + n_out) * item + (t // 16) * 4
+    flops = 2 * t * k * n
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype_name(x.dtype)] * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), {
+        "bytes": nbytes, "flops": flops}
+
+
+def phase_dispatch_kernels() -> None:
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch_matmul,
+                                                  moe_dispatch_matmul_plain)
+    cfg = moe_config()
+    e, f, d = cfg.n_experts, cfg.d_ff_expert, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bad = []
+    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        w = packed_experts(gen, dt, cfg)
+        shapes = dispatch_shapes(cfg)
+        if dt == torch.float32:     # the f32 route: checked, not timed
+            shapes = shapes[:1]
+        for tag, rpe in shapes:
+            t = e * rpe
+            gids = torch.arange(e, dtype=torch.int32, device="cuda")
+            gids = gids.repeat_interleave(rpe // 16)
+            x = torch.randn((t, d), generator=gen, device="cuda").to(dt)
+            h = torch.randn((t, f), generator=gen, device="cuda").to(dt)
+            products = (("gate", x, w["we_gate"]), ("up", x, w["we_up"]),
+                        ("down", h, w["we_down"]))
+            for name, a, wt in products:
+                got = moe_dispatch_matmul(gids, a, wt, block_t=16)
+                torch.cuda.synchronize()
+                want = moe_dispatch_matmul_plain(gids, a, wt, block_t=16)
+                err, ok = close_enough(got, want, tol)
+                log(f"[moe_dispatch_matmul] {dtype_name(dt)} {tag} {name}: "
+                    f"T={t} K={a.shape[1]} N={wt.shape[2]} w strides "
+                    f"{tuple(wt.stride())}: max |err| {err:.3e} (tolerance "
+                    f"{tol:g} abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
+                record.setdefault("dispatch_checks", []).append(
+                    {"dtype": dtype_name(dt), "shape": tag, "product": name,
+                     "max_abs_err": err, "tol": tol, "ok": ok})
+                if not ok:
+                    bad.append(f"{dtype_name(dt)} {tag} {name}")
+                del got, want
+                if dt != torch.bfloat16 or name == "up":
+                    continue
+                iters = 3 if t > 50000 else 10
+                bound, by, work = dispatch_bound(a, wt, t * wt.shape[2])
+                ae = a.view(e, rpe, -1)
+                p1 = cuda_ms(lambda: moe_dispatch_matmul_plain(
+                    gids, a, wt, block_t=16), iters=iters, warmup=1)
+                k_ms = cuda_ms(lambda: moe_dispatch_matmul(
+                    gids, a, wt, block_t=16), iters=iters)
+                lib_ms = cuda_ms(lambda: torch.matmul(ae, wt), iters=iters)
+                p2 = cuda_ms(lambda: moe_dispatch_matmul_plain(
+                    gids, a, wt, block_t=16), iters=iters, warmup=1)
+                row = dict(ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound,
+                           bound_by=by, library_ms=lib_ms, max_abs_err=err,
+                           shape=tag, product=name, T=t, work=work)
+                record.setdefault("moe_dispatch_matmul_runs", []).append(row)
+                if tag == "paged prefill chunk" and name == "gate":
+                    record["moe_dispatch_matmul"] = row
+                log(f"[moe_dispatch_matmul] bf16 {tag} {name} T={t} "
+                    f"K={a.shape[1]} N={wt.shape[2]}: kernel {k_ms:.4f} ms, "
+                    f"plain {row['plain_ms']:.4f} ms, bound {bound:.5f} ms "
+                    f"({by}: {work}), library torch.matmul over "
+                    f"[E, B*cap, K] x [E, K, N] {lib_ms:.4f} ms")
+            del x, h, products, a, wt
+        del w
+        free_cuda()
+    if bad:
+        raise AssertionError(f"kernel disagrees with plain: {bad}")
+
+
+def msb_kernels() -> dict:
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_matmul
+    return {**sb_kernels(), "moe_dispatch_matmul": moe_dispatch_matmul}
+
+
+def phase_msb_serve(state: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import Engine
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (MSB_BATCH, MSB_PROMPT),
+                           generator=torch.Generator().manual_seed(0))
+    kernels = msb_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    eng = Engine(cfg, params, max_len=MSB_PROMPT + MSB_GEN, sparse=True,
+                 device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = [eng.prefill({"tokens": tokens})]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_s, profiled = [], None
+    for i in range(MSB_GEN - 1):
+        if i == 4:
+            profiled = profile_step(eng)
+            toks.append(eng._last)
+            continue
+        t0 = time.perf_counter()
+        toks.append(eng.step())
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    state["msb_launches"] = launches
+    out = np.stack([t.cpu().numpy() for t in toks], axis=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = eng.stats
+    L = cfg.n_layers
+    ms = np.asarray(decode_s) * 1e3
+    n_prompt = MSB_BATCH * MSB_PROMPT
+    log(f"[msb serve] {MOE_ARCH} full width, {L} layers, bf16, single-batch "
+        f"Engine, kernel=cuda: weights made in {init_s:.1f} s; batch "
+        f"{MSB_BATCH} x {MSB_PROMPT} prompt tokens, {out.shape[1]} tokens "
+        f"each, TopK {cfg.kv_topk_pages} of {(MSB_PROMPT + MSB_GEN) // 16} "
+        f"pages")
+    log(f"[msb serve] prefill {n_prompt} tokens in {prefill_s:.3f} s = "
+        f"{n_prompt / prefill_s:.0f} tokens/s; decode {len(ms)} timed steps, "
+        f"ms/step mean {ms.mean():.2f} median {np.median(ms):.2f}")
+    log(f"[msb serve] launches: moe_dispatch_matmul "
+        f"{launches['moe_dispatch_matmul']} (3 x {L} x (1 prefill + "
+        f"{st.steps} steps) = {3 * L * (1 + st.steps)}), sparse_decode_attn "
+        f"{launches['sparse_decode_attn']} ({st.steps * L}), flash_prefill "
+        f"{launches['flash_prefill']} ({L}), gather_rows "
+        f"{launches['gather_rows']} ({1 + st.steps})")
+    log(f"[msb serve] NSB hit rate {st.hot_hit_rate}; peak device memory "
+        f"{peak:.2f} GiB (set-up included)")
+    log_profile("msb serve", profiled)
+    record["msb_serve"] = {
+        "layers": L, "batch": MSB_BATCH, "prompt": MSB_PROMPT,
+        "gen": MSB_GEN, "init_s": init_s, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": n_prompt / prefill_s,
+        "decode_ms_mean": float(ms.mean()),
+        "decode_ms_median": float(np.median(ms)),
+        "decode_steps_timed": len(ms), "launches": launches,
+        "nsb_hit_rate": st.hot_hit_rate, "profile": profiled,
+        "max_memory_gib": peak}
+    assert out.shape == (MSB_BATCH, MSB_GEN) and st.steps == MSB_GEN - 1
+    assert launches["moe_dispatch_matmul"] == 3 * L * (1 + st.steps)
+    assert launches["sparse_decode_attn"] == st.steps * L
+    assert launches["flash_prefill"] == L
+    assert launches["gather_rows"] == 1 + st.steps
+    assert bool(torch.isfinite(eng.logits).all())
+    assert ((out >= 0) & (out < cfg.vocab)).all()
+    assert peak < 80
+    state.update(msb_engine=eng, msb_tokens=tokens)
+
+
+def phase_msb_teacher_forced(state: dict) -> None:
+    """Every kernel of path 2b held against its plain version in every
+    layer, on the path's own activations: the grouped GEMMs and the
+    causal ``flash_prefill`` (B=8, S=1024, H=64, KV=4, q_offset 0) of one
+    prefill, then the grouped GEMMs and ``sparse_decode_attn`` (KV=4,
+    G=16) of one decode step.  Each layer goes on from the kernel's
+    output."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_matmul_plain
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import chunked_attention
+    from repro_torch.models.sparse_attention import attend_pages
+    eng = state["msb_engine"]
+    L = eng.cfg.n_layers
+    tol = 1e-2
+    errs: dict = {"moe_dispatch_matmul prefill": {}, "flash_prefill": {},
+                  "moe_dispatch_matmul decode": {},
+                  "sparse_decode_attn": {}}
+    fails, shapes = [], {}
+
+    def note(name, li, got, want, shape):
+        err, ok = close_enough(got, want, tol)
+        errs[name][li] = max(errs[name].get(li, 0.0), err)
+        shapes[name] = shape
+        if not ok:
+            fails.append((name, li))
+    gemm, attn = moe.moe_dispatch_matmul, transformer.flash_prefill
+    n_gemm = []                 # the prefill's 3 * L calls, then the step's
+
+    def checked_gemm(gids, x, w, *, block_t):
+        out = gemm(gids, x, w, block_t=block_t)
+        stage = "prefill" if len(n_gemm) < 3 * L else "decode"
+        note(f"moe_dispatch_matmul {stage}", len(n_gemm) // 3 % L, out,
+             moe_dispatch_matmul_plain(gids, x, w, block_t=block_t),
+             f"T={x.shape[0]}")
+        n_gemm.append(1)
+        return out
+
+    def checked_attn(q, k, v, *, q_offset, causal, chunk, logit_softcap):
+        out = attn(q, k, v, q_offset=q_offset, causal=causal, chunk=chunk,
+                   logit_softcap=logit_softcap)
+        note("flash_prefill", len(errs["flash_prefill"]), out,
+             chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               chunk=chunk, logit_softcap=logit_softcap),
+             f"q {tuple(q.shape)} k {tuple(k.shape)} q_offset {q_offset}")
+        return out
+
+    def probe(li, x):
+        note("sparse_decode_attn", li, x["out"], attend_pages(
+            x["q"], x["k"], x["v"], x["idx"], x["pos"], eng.cfg.kv_page),
+            f"q {tuple(x['q'].shape)} pos {x['pos']}")
+    moe.moe_dispatch_matmul = checked_gemm
+    transformer.flash_prefill = checked_attn
+    eng.attend_probe = probe
+    try:
+        eng.prefill({"tokens": state["msb_tokens"]})
+        eng.step()
+    finally:
+        moe.moe_dispatch_matmul = gemm
+        transformer.flash_prefill = attn
+        eng.attend_probe = None
+    torch.cuda.synchronize()
+    for name, by_layer in errs.items():
+        log(f"[msb teacher-forced] {name} ({shapes.get(name)}), bf16 full "
+            f"width: {len(by_layer)} layers checked, max |kernel - plain| "
+            f"per layer {[round(by_layer[i], 5) for i in sorted(by_layer)]} "
+            f"(tolerance {tol:g} abs + {tol:g} rel)")
+    record["msb_teacher_forced"] = {"max_abs_err": errs, "tol": tol,
+                                    "shapes": shapes, "failed": fails}
+    assert len(n_gemm) == 6 * L, "not every grouped GEMM checked"
+    assert all(len(v) == L for v in errs.values()), "not every layer checked"
+    assert not fails, f"(kernel, layer) pairs disagree: {fails}"
+
+
+# -- phases 21-22: gather_spmm and the kernel quickstart -----------------------
+
+def spmm_bound(cols, vals, dense, n_out) -> tuple[float, str, dict]:
+    """Least time of one call on this data: the ELL arrays, the dense rows
+    they name and the float32 output each moved once; two flops for each
+    non-zero entry and output column, at the card's peak for the dense
+    operand's type (the kernel's float32 FMAs on the CUDA cores do not
+    set the least time: a tensor-core product of bf16 operands could)."""
+    import torch
+    n = dense.shape[1]
+    rows = int(torch.unique(cols).numel())
+    nnz = int((vals != 0).sum())
+    nbytes = (cols.numel() * 4 + vals.numel() * vals.element_size()
+              + rows * n * dense.element_size() + n_out * 4)
+    flops = 2 * nnz * n
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype_name(dense.dtype)] * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), {
+        "bytes": nbytes, "flops": flops, "nnz": nnz, "dense_rows": rows}
+
+
+def phase_spmm_kernels() -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather_spmm import (gather_spmm,
+                                                 gather_spmm_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bad = []
+    cfg = get_config("qwen2-1.5b")
+    n_in = cfg.d_ff
+    j_pruned = n_in // 10                  # 90 % unstructured sparsity
+    cases = (
+        ("kernel bench", 256, 16, 1024, 1024, torch.float32),
+        (f"qwen2-1.5b down projection [{cfg.d_model}, {n_in}] at 90% "
+         f"sparsity over a {CHUNK}-token chunk", cfg.d_model, j_pruned, n_in,
+         CHUNK, torch.bfloat16))
+    for tag, m, j, nin, n, dt in cases:
+        if j == 16:
+            cols = torch.randint(0, nin, (m, j), generator=gen, device="cuda")
+        else:                              # distinct sorted ids per row
+            cols = torch.rand((m, nin), generator=gen,
+                              device="cuda").argsort(dim=1)[:, :j]
+            cols = cols.sort(dim=1).values
+        cols = cols.to(torch.int32).contiguous()
+        vals = (torch.randn((m, j), generator=gen, device="cuda")
+                * j ** -0.5).to(dt)
+        dense = torch.randn((nin, n), generator=gen, device="cuda").to(dt)
+        got = gather_spmm(cols, vals, dense)
+        torch.cuda.synchronize()
+        err, ok = close_enough(got, gather_spmm_plain(cols, vals, dense),
+                               1e-5)
+        log(f"[gather_spmm] {tag}: M={m} J={j} N_in={nin} N={n} "
+            f"{dtype_name(dt)}: max |err| {err:.3e} (tolerance 1e-05 abs + "
+            f"1e-05 rel) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(tag)
+        # the yardstick: torch.sparse.mm on the same matrix in CSR
+        crow = torch.arange(0, (m + 1) * j, j, device="cuda")
+
+        def csr_of(v):
+            return torch.sparse_csr_tensor(crow, cols.long().reshape(-1),
+                                           v.reshape(-1), size=(m, nin))
+        csr, lib_note = csr_of(vals), ""
+        try:
+            torch.sparse.mm(csr, dense)
+            lib_fn = (lambda: torch.sparse.mm(csr, dense))
+        except (RuntimeError, NotImplementedError):
+            csr32, dense32 = csr_of(vals.float()), dense.float()
+            lib_fn = (lambda: torch.sparse.mm(csr32, dense32))
+            lib_note = " (float32 operands: no bf16 CSR product here)"
+        bound, by, work = spmm_bound(cols, vals, dense, m * n)
+        p1 = cuda_ms(lambda: gather_spmm_plain(cols, vals, dense))
+        k_ms = cuda_ms(lambda: gather_spmm(cols, vals, dense))
+        lib_ms = cuda_ms(lib_fn)
+        p2 = cuda_ms(lambda: gather_spmm_plain(cols, vals, dense))
+        row = dict(ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound,
+                   bound_by=by, library_ms=lib_ms, max_abs_err=err,
+                   shape=tag, work=work, library_note=lib_note)
+        record.setdefault("gather_spmm_runs", []).append(row)
+        record["gather_spmm"] = row        # the pruned layer, the last case
+        log(f"[gather_spmm] {tag}: kernel {k_ms:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound:.5f} ms ({by}: {work}),"
+            f" library torch.sparse.mm (CSR){lib_note} {lib_ms:.4f} ms")
+        del cols, vals, dense, csr, got
+    if bad:
+        raise AssertionError(f"kernel disagrees with plain: {bad}")
+
+
+def phase_quickstart(state: dict) -> None:
+    import torch
+
+    from repro_torch.kernels.gather_spmm import gather_spmm
+    from repro_torch.kernels.sparse_decode_attn import sparse_decode_attn
+    from repro_torch.launch import quickstart
+    kernels = {"gather_spmm": gather_spmm,
+               "sparse_decode_attn": sparse_decode_attn}
+    for fn in kernels.values():
+        fn.launches = 0
+    rc = quickstart.main([])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    state["qs_launches"] = launches
+    log(f"[quickstart] exit {rc}, launches {launches}")
+    record["quickstart"] = {"rc": rc, "launches": launches}
+    assert rc == 0 and all(v > 0 for v in launches.values())
+
+
 def _map(tree, fn):
     return {k: (_map(v, fn) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
@@ -1561,6 +2086,20 @@ def main() -> int:
     run_phase("16 single-batch f32 cuda vs torch",
               lambda: phase_sb_f32(state))
     run_phase("17 single-batch reduced card vs cpu", phase_sb_reduced_cpu)
+    for k in ("sb_cfg", "sb_params", "sb_engine"):
+        state.pop(k, None)
+    free_cuda()
+    run_phase("18 grouped GEMM vs plain", phase_dispatch_kernels)
+    free_cuda()
+    run_phase("19 moe single-batch Engine full width",
+              lambda: phase_msb_serve(state))
+    run_phase("20 moe single-batch teacher-forced per layer",
+              lambda: phase_msb_teacher_forced(state))
+    for k in ("msb_engine", "msb_tokens"):
+        state.pop(k, None)
+    free_cuda()
+    run_phase("21 gather_spmm vs plain", phase_spmm_kernels)
+    run_phase("22 quickstart on the card", lambda: phase_quickstart(state))
     record["seconds"] = time.perf_counter() - t0
     record["failures"] = failures
     if os.environ.get("CHIP_SMOKE_JSON"):
@@ -1570,9 +2109,10 @@ def main() -> int:
     if failures:
         log(f"chip_smoke: FAILED phases {failures}")
         return 1
-    # launches of the three serve paths, each counted from 0 around its run
+    # launches of the five paths, each counted from 0 around its run
     launches: dict = {}
-    for run in ("launches", "moe_launches", "sb_launches"):
+    for run in ("launches", "moe_launches", "sb_launches", "msb_launches",
+                "qs_launches"):
         for k, v in state[run].items():
             launches[k] = launches.get(k, 0) + v
     kernels = []
@@ -1583,7 +2123,9 @@ def main() -> int:
             ("moe_paged_gateup", "moe_dispatch.cu", GATEUP_TPU),
             ("moe_paged_down", "moe_dispatch.cu", DOWN_TPU),
             ("sparse_decode_attn", "sparse_decode_attn.cu", SPARSE_TPU),
-            ("gather_rows", "gather_rows.cu", GATHER_TPU)):
+            ("gather_rows", "gather_rows.cu", GATHER_TPU),
+            ("moe_dispatch_matmul", "moe_dispatch.cu", DISPATCH_TPU),
+            ("gather_spmm", "gather_spmm.cu", SPMM_TPU)):
         r = record[name]
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
@@ -1592,6 +2134,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        log(f"chip_smoke: kernels never launched on a path: {idle}")
+        return 1
     print(record["card"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

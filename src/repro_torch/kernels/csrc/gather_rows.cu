@@ -11,7 +11,8 @@
 // A gather moves bytes and computes nothing, so the kernel copies each
 // row as opaque words: the result is bitwise the plain version's for
 // every dtype.  Ids outside [0, N) give a row of zero bytes instead of a
-// read outside the table.
+// read outside the table; the plain version gives the same rows (see
+// gather_rows.py for where the reference disagrees with itself).
 //
 // What bounds it on the H100: bytes (each output row read once from the
 // table and written once).  The TPU kernel prefetches the ids ahead of a

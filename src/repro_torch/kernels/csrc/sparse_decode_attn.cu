@@ -31,8 +31,9 @@
 // no barrier until the end, when the warps' partial states meet once in
 // shared memory in a fixed order: no atomics, so results do not depend
 // on scheduling.  This first version has one block per (row, head,
-// 8-head chunk); splitting the pages across blocks (and a second pass to
-// merge them) would fill more of the card's 132 SMs.
+// 8-head chunk; 4 heads at D = 256, where each lane holds 8 elements);
+// splitting the pages across blocks (and a second pass to merge them)
+// would fill more of the card's 132 SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,8 +47,14 @@ using repro_torch::from_f32;
 using repro_torch::to_f32;
 
 constexpr int kWarps = 8;
-constexpr int kGC = 8;   // query heads a block carries (a chunk of G)
 constexpr int kTok = 4;  // tokens whose K/V rows a warp loads together
+
+// query heads a block carries (a chunk of G): 8, or 4 at D = 256, where
+// 8 warps' partial states of 8 heads would need 64 KiB of shared memory
+// and twice the registers
+__host__ __device__ constexpr int heads_per_block(int dpl) {
+  return dpl > 4 ? 4 : 8;
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -63,6 +70,7 @@ sparse_decode_kernel(const int32_t* __restrict__ idx,
                      int KV, int G, int P, int page, int frontier,
                      float scale, float kv_scale) {
   constexpr int D = 32 * DPL;
+  constexpr int kGC = heads_per_block(DPL);
   __shared__ float m_s[kWarps][kGC];
   __shared__ float l_s[kWarps][kGC];
   __shared__ float acc_s[kWarps][kGC][D];
@@ -185,6 +193,7 @@ cudaError_t launch(const void* idx, const void* q, const void* k,
                    const void* v, void* out, int B, int S, int KV, int G,
                    int P, int page, int frontier, float kv_scale,
                    cudaStream_t stream) {
+  constexpr int kGC = heads_per_block(DPL);
   const dim3 grid(B * KV, (G + kGC - 1) / kGC);
   sparse_decode_kernel<TQ, TKV, DPL><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const int32_t*>(idx), static_cast<const TQ*>(q),
@@ -208,6 +217,9 @@ cudaError_t launch_d(const void* idx, const void* q, const void* k,
                                 frontier, kv_scale, stream);
     case 128:
       return launch<TQ, TKV, 4>(idx, q, k, v, out, B, S, KV, G, P, page,
+                                frontier, kv_scale, stream);
+    case 256:
+      return launch<TQ, TKV, 8>(idx, q, k, v, out, B, S, KV, G, P, page,
                                 frontier, kv_scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -237,7 +249,7 @@ cudaError_t launch_kv(const void* idx, const void* q, const void* k,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (K/V only); D is 32,
-// 64 or 128.  Returns cudaGetLastError() after the launch.
+// 64, 128 or 256.  Returns cudaGetLastError() after the launch.
 extern "C" int sparse_decode_attn(const void* idx, const void* q,
                                   const void* k, const void* v, void* out,
                                   int B, int S, int KV, int G, int D, int P,

@@ -13,6 +13,13 @@ launches the CUDA kernel for tensors on a card; there is no fallback
 between the two.  The kernel copies rows as opaque words, so its result
 is bitwise the plain version's.  ``gather_rows.launches`` counts kernel
 launches.
+
+Ids outside ``[0, N)``: both versions give a row of zeros and never read
+outside the table.  The reference disagrees with itself there: its
+oracle ``jnp.take`` gives NaN rows for ``id >= N`` and wraps ``-1`` to
+the last row, and its Pallas kernel (interpret mode) clamps ``id >= N``
+to the last row.  No serve path makes such ids (tokens come from an
+argmax over the vocabulary).
 """
 
 from __future__ import annotations
@@ -29,15 +36,19 @@ _IDX_BYTES = {torch.int32: 4, torch.int64: 8}
 
 
 def gather_rows_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """idx int [K]; table [N, D] -> table[idx] [K, D]."""
-    return table[idx]
+    """idx int [K]; table [N, D] -> table[idx] [K, D], with a row of
+    zeros for each id outside [0, N), as the kernel gives."""
+    n = table.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, max(n - 1, 0))]
+    return torch.where(ok[:, None], rows, torch.zeros((), dtype=table.dtype))
 
 
 def gather_rows(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``out[k] = table[idx[k]]``.
 
     idx int32 or int64 [K] (repeats allowed; ids outside [0, N) give
-    zero rows on the card, an error on the CPU); table [N, D] of any
+    rows of zeros, on the card and on the CPU); table [N, D] of any
     dtype.  Returns [K, D] in table's dtype."""
     if not table.is_cuda:
         return gather_rows_plain(idx, table)

@@ -1,18 +1,22 @@
-"""Paged expert-tile GEMVs of the MoE decode step: the CUDA kernels and
-their dispatch.
+"""The MoE expert GEMMs: the CUDA kernels and their dispatch.
 
-Replaces the TPU kernels ``src/repro/kernels/moe_dispatch.py``
-``moe_paged_gateup`` (``_gateup_kernel``) and ``moe_paged_down``
-(``_down_kernel``).  The kernel source is ``csrc/moe_dispatch.cu``,
-whose header says what bounds them on the H100 and what their design
-does about that.  The plain versions beside them copy the reference's
-oracles ``kernels/ref.py::moe_paged_*_ref``: gather the routed tiles,
-contract in float32, cast back.
+* :func:`moe_dispatch_matmul`, the capacity dispatch's grouped GEMM
+  (``models.moe.moe_ffn``'s three expert products), replaces the TPU
+  kernel ``src/repro/kernels/moe_dispatch.py`` ``moe_dispatch_matmul``
+  (``_moe_kernel``).  Its plain version copies the reference's oracle
+  ``kernels/ref.py::moe_dispatch_matmul_ref`` (float32 contraction, cast
+  to x's dtype), one expert at a time.
+* :func:`moe_paged_gateup` and :func:`moe_paged_down`, the paged
+  expert-tile GEMVs of the MoE decode step, replace ``moe_paged_gateup``
+  (``_gateup_kernel``) and ``moe_paged_down`` (``_down_kernel``).  Their
+  plain versions copy ``kernels/ref.py::moe_paged_*_ref``: gather the
+  routed tiles, contract in float32, cast back.
 
+The kernel source is ``csrc/moe_dispatch.cu``, whose header says what
+bounds each kernel on the H100 and what its design does about that.
 Each wrapper runs its plain version for tensors on the CPU and launches
 its CUDA kernel for tensors on a card; there is no fallback between the
-two.  ``moe_paged_gateup.launches`` and ``moe_paged_down.launches``
-count kernel launches.
+two.  ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ import torch
 from . import _build
 from ._build import Q_CODES
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"moe_paged_gateup": [_P] * 4 + [_I] * 7 + [_P],
-               "moe_paged_down": [_P] * 4 + [_I] * 7 + [_P]}
+               "moe_paged_down": [_P] * 4 + [_I] * 7 + [_P],
+               "moe_dispatch_matmul": [_P] * 4 + [_I] * 5 + [_L] * 3
+               + [_I] * 2 + [_P]}
 
 
 def _gather(pids: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
@@ -118,5 +124,90 @@ def moe_paged_down(pids: torch.Tensor, h: torch.Tensor,
     return out
 
 
+def moe_dispatch_matmul_plain(group_ids: torch.Tensor, x: torch.Tensor,
+                              w: torch.Tensor, *,
+                              block_t: int) -> torch.Tensor:
+    """group_ids int [T / block_t]; x [T, D]; w [E, D, F] -> [T, F] in
+    x's dtype: each block of rows times its expert's weights, contracted
+    in float32.  One expert at a time, so ``w[group_ids]`` is never
+    made; ids outside [0, E) give rows of zeros, as on the card."""
+    t, d = x.shape
+    e, _, f = w.shape
+    xb = x.reshape(-1, block_t, d)
+    out = torch.zeros((xb.shape[0], block_t, f), dtype=torch.float32,
+                      device=x.device)
+    gid = group_ids.long()
+    for ei in torch.unique(gid).tolist():
+        if 0 <= ei < e:
+            sel = torch.nonzero(gid == ei).squeeze(1)
+            out[sel] = torch.matmul(xb[sel].float(), w[ei].float())
+    return out.reshape(t, f).to(x.dtype)
+
+
+def _gemm_layout(w: torch.Tensor) -> int | None:
+    """0 when w's K stride is 1, 1 when its N stride is 1, and None when
+    the bfloat16 kernel cannot read w in place (16-byte rows)."""
+    se, sk, sn = w.stride()
+    aligned = w.data_ptr() % 16 == 0 and se % 8 == 0
+    if sk == 1 and aligned and sn % 8 == 0:
+        return 0
+    if sn == 1 and aligned and sk % 8 == 0 and w.shape[2] % 8 == 0:
+        return 1
+    return None
+
+
+def moe_dispatch_matmul(group_ids: torch.Tensor, x: torch.Tensor,
+                        w: torch.Tensor, *, block_t: int) -> torch.Tensor:
+    """Grouped GEMM: ``out[tb] = x[tb] @ w[group_ids[tb]]`` for each
+    block ``tb`` of ``block_t`` rows.
+
+    group_ids int32 [T / block_t] (any order; ids outside [0, E) give
+    zero rows); x [T, D] contiguous (float32 or bfloat16); w [E, D, F]
+    in x's dtype, read through its strides (a transposed view of
+    ``[E, F, D]`` weights included).  Returns [T, F] in x's dtype with
+    float32 accumulation."""
+    if not x.is_cuda:
+        return moe_dispatch_matmul_plain(group_ids, x, w, block_t=block_t)
+    if x.dtype not in Q_CODES or w.dtype != x.dtype:
+        raise TypeError(f"moe_dispatch_matmul takes "
+                        f"{'/'.join(map(str, Q_CODES))} x and w of one "
+                        f"dtype, got {x.dtype} and {w.dtype}")
+    if group_ids.dtype != torch.int32:
+        raise TypeError(f"moe_dispatch_matmul: group_ids must be int32, got "
+                        f"{group_ids.dtype}")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are "
+                         f"not [T, D] and [E, D, F]")
+    t, d = x.shape
+    e, _, f = w.shape
+    if block_t <= 0 or t % block_t or group_ids.shape != (t // block_t,):
+        raise ValueError(f"group_ids {tuple(group_ids.shape)} do not give "
+                         f"one id per {block_t} of x's {t} rows")
+    if any(a.device != x.device for a in (group_ids, w)):
+        raise ValueError("moe_dispatch_matmul: all inputs must be on one "
+                         "device")
+    if not (x.is_contiguous() and group_ids.is_contiguous()):
+        raise ValueError("moe_dispatch_matmul needs contiguous x and "
+                         "group_ids")
+    layout = 0
+    if x.dtype == torch.bfloat16:
+        layout = _gemm_layout(w)
+        if layout is None or d % 8 or x.data_ptr() % 16:
+            raise ValueError(
+                f"moe_dispatch_matmul (bfloat16) reads w in 16-byte rows "
+                f"along D or F: w {tuple(w.shape)} with strides "
+                f"{w.stride()} and D = {d} do not allow it")
+    out = torch.empty((t, f), dtype=x.dtype, device=x.device)
+    lib = _build.load("moe_dispatch", _SIGNATURES)
+    code = lib.moe_dispatch_matmul(
+        _build.ptr(group_ids), _build.ptr(x), _build.ptr(w), _build.ptr(out),
+        t, d, f, e, block_t, *w.stride(), Q_CODES[x.dtype], layout,
+        _build.stream_ptr(x.device))
+    _build.check(code, "moe_dispatch_matmul")
+    moe_dispatch_matmul.launches += 1
+    return out
+
+
+moe_dispatch_matmul.launches = 0
 moe_paged_gateup.launches = 0
 moe_paged_down.launches = 0

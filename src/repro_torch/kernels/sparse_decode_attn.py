@@ -34,7 +34,7 @@ from ._build import KV_CODES, Q_CODES
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"sparse_decode_attn": [_P] * 5 + [_I] * 10 + [_F, _P]}
 _NO_FRONTIER = 2 ** 31 - 1
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def sparse_decode_attn_plain(idx: torch.Tensor, q: torch.Tensor,
@@ -57,7 +57,7 @@ def sparse_decode_attn(idx: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     """TopK-page decode attention over one layer of a contiguous cache.
 
     idx int32 [B, KV, P] page ids into [0, S / page_size); q
-    [B, KV, G, D] (float32 or bfloat16, D in 32/64/128 on the card);
+    [B, KV, G, D] (float32 or bfloat16, D in 32/64/128/256 on the card);
     k/v [B, S, KV, D] (float32, bfloat16 or int8 scaled by
     ``1 / KV_QSCALE``).  With ``pos=None`` every gathered token counts
     (the TPU kernel); with a host int ``pos``, tokens past it score

@@ -6,6 +6,13 @@ capacity dispatch that keeps at most ``cap`` (token, expert) pairs per
 expert and drops the rest.  The chunked prefill runs it in every layer,
 and so does the decode step when the engine's expert pool is off.
 
+The three expert products run as grouped GEMMs over the dispatched rows
+``[E * B * cap, D]`` (one group id per 16 rows, the experts in order):
+the ``moe_dispatch_matmul`` kernel with ``kernel="cuda"`` (its plain
+version for CPU tensors), ``torch.matmul`` over ``[E, B*cap, D]`` with
+``kernel="torch"``.  The reference composes its grouped-GEMM kernel the
+same way in its tests (``test_moe_ffn_vs_dispatch_matmul_with_drops``).
+
 The reference ``vmap``s one row's dispatch over the batch; here the
 batch is an explicit leading dimension.  Its scatters become index
 writes and a gather: every kept pair owns one capacity slot, so the
@@ -19,9 +26,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.moe_dispatch import moe_dispatch_matmul
 from .sparse_attention import topk_lowest_index
 
 Params = dict
+BLOCK_T = 16          # rows per group id; divides cap, which is 16-aligned
 
 
 def _capacity(s: int, k: int, e: int, factor: float) -> int:
@@ -51,10 +60,32 @@ def _route_row(x: torch.Tensor, router: torch.Tensor, k: int, cap: int):
     return slot, keep, order // k, order, gates, eids
 
 
+def _expert_products(xe: torch.Tensor, p: Params, kernel: str):
+    """The gated expert MLP on the dispatched rows xe [E, B*cap, D]:
+    three grouped GEMMs, through the kernel or ``torch.matmul``.  The
+    (possibly strided) weight views are taken as they are, no copy."""
+    wg, wu, wd = (p[k].to(xe.dtype) for k in ("we_gate", "we_up",
+                                              "we_down"))
+    if kernel != "cuda":
+        gate = F.silu(torch.matmul(xe, wg))
+        return torch.matmul(gate * torch.matmul(xe, wu), wd)
+    e, rows, d = xe.shape
+    gids = torch.arange(e, dtype=torch.int32, device=xe.device)
+    gids = gids.repeat_interleave(rows // BLOCK_T)
+    x2 = xe.reshape(e * rows, d)
+    gate = F.silu(moe_dispatch_matmul(gids, x2, wg, block_t=BLOCK_T))
+    h = gate * moe_dispatch_matmul(gids, x2, wu, block_t=BLOCK_T)
+    y = moe_dispatch_matmul(gids, h, wd, block_t=BLOCK_T)
+    return y.view(e, rows, -1)
+
+
 def moe_ffn(x: torch.Tensor, p: Params, cfg,
-            capacity_factor: float = 1.25) -> torch.Tensor:
+            capacity_factor: float = 1.25,
+            kernel: str = "cuda") -> torch.Tensor:
     """x [B, S, D] -> [B, S, D] through the top-k experts, with static
-    capacity (pairs past an expert's capacity are dropped)."""
+    capacity (pairs past an expert's capacity are dropped); the expert
+    products through the grouped-GEMM kernel (``kernel="cuda"``) or
+    ``torch.matmul`` (``"torch"``)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(s, k, e, capacity_factor)
@@ -64,12 +95,8 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg,
     # dispatch: each kept pair owns its capacity slot
     xg = x.new_zeros((b, e * cap, d))
     xg[bi[keep], slot[keep]] = x[bi[keep], pair_token[keep]]
-    # expert products as [E, B*cap, D] x [E, D, F]: matmul takes the
-    # (possibly strided) weight views as they are, with no copy
     xe = xg.view(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    gate = F.silu(torch.matmul(xe, p["we_gate"].to(xe.dtype)))
-    up = torch.matmul(xe, p["we_up"].to(xe.dtype))
-    yg = torch.matmul(gate * up, p["we_down"].to(xe.dtype))  # [E,B*cap,D]
+    yg = _expert_products(xe, p, kernel)                      # [E,B*cap,D]
     yg = yg.view(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
     # combine: each pair's output times its gate, in x's working dtype
     pair_out = torch.where(keep[..., None], yg[bi, slot], 0.0)

@@ -18,6 +18,9 @@ versions for CPU tensors) or the plain versions everywhere with
   ``q_offset=pos`` over the layer's whole cache, plain
   ``chunked_attention`` with the same arguments.
 
+The MoE feed-forward's expert products run ``moe_dispatch_matmul`` with
+``kernel="cuda"`` and ``torch.matmul`` with ``kernel="torch"``.
+
 The cache is a dict ``{"k", "v": [L, B, max_len, KV, D], "pos": int,
 "kpage": [L, B, max_len / page, KV, D] float32}`` (``kpage`` for
 sparse-KV configs), allocated at its full length once.  Unlike the
@@ -54,11 +57,14 @@ def embed(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def ffn(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+def ffn(x: torch.Tensor, p: Params, cfg, *,
+        kernel: str = "cuda") -> torch.Tensor:
     """The feed-forward block on [B, S, D]: dense, or the MoE capacity
-    dispatch for MoE configs (the reference's ``transformer._ffn``)."""
+    dispatch for MoE configs (the reference's ``transformer._ffn``),
+    whose expert products run the ``moe_dispatch_matmul`` kernel with
+    ``kernel="cuda"``."""
     if cfg.n_experts:
-        return moe.moe_ffn(x, p, cfg)
+        return moe.moe_ffn(x, p, cfg, kernel=kernel)
     h = torch.matmul(x, p["wi"].to(x.dtype))
     if cfg.act in ("swiglu", "geglu"):
         g = torch.matmul(x, p["wg"].to(x.dtype))
@@ -110,7 +116,7 @@ def layer_fwd(cfg, x: torch.Tensor, p: Params, pos: torch.Tensor, *,
     o = attention(kernel)(q, k, v, 0, 1024, cfg.logit_softcap)
     x = x + mlayers.attn_out(o, p)
     h2 = mlayers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn(h2, p, cfg), k, v
+    return x + ffn(h2, p, cfg, kernel=kernel), k, v
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *, collect_kv=None,
@@ -260,7 +266,7 @@ def decode_step(params: Params, cfg, cache: dict, token: torch.Tensor, *,
                        cfg.logit_softcap)
         x = x + mlayers.attn_out(o, lp)
         h2 = mlayers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn(h2, lp, cfg)
+        x = x + ffn(h2, lp, cfg, kernel=kernel)
     x = mlayers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return logits_last(params, cfg, x), cache

@@ -31,13 +31,15 @@ for tensors on the CPU) or the plain versions everywhere
 (``kernel="torch"``).
 
 MoE configs: the chunked prefill runs the capacity dispatch
-(``models.moe.moe_ffn``) in every layer, as the reference's prefill
-does.  The decode step runs it too with ``expert_pool="off"``; with
-``"dense"`` or ``"paged"`` it routes each row to its top-k experts and
-reads their weights as row-tile pages of :class:`.expert_pool.ExpertPool`
-(``"paged"`` with ``kernel="cuda"`` through the two MoE CUDA kernels),
-returns the routed ids of every layer with the logits, and scores the
-pages they demand against a demand-LRU (``expert_nsb_slots`` pages).
+(``models.moe.moe_ffn``, its expert products through the
+``moe_dispatch_matmul`` kernel with ``kernel="cuda"``) in every layer,
+as the reference's prefill does.  The decode step runs it too with
+``expert_pool="off"``; with ``"dense"`` or ``"paged"`` it routes each
+row to its top-k experts and reads their weights as row-tile pages of
+:class:`.expert_pool.ExpertPool` (``"paged"`` with ``kernel="cuda"``
+through the two MoE CUDA kernels), returns the routed ids of every
+layer with the logits, and scores the pages they demand against a
+demand-LRU (``expert_nsb_slots`` pages).
 
 Preemption is by recompute: prompts re-prefill and generated tokens
 replay through the decode path, so the same functions see the same
@@ -264,7 +266,7 @@ class PagedServeStats(ServeStats):
 
 def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
                  pools: tuple, host: np.ndarray, attend, probe=None,
-                 expert_ffn=None):
+                 expert_ffn=None, kernel: str = "cuda"):
     """One ragged decode step over the physical pools, updated in place.
 
     ``host`` int64 [R, 5 + NL] packs, per row, the token, position,
@@ -272,8 +274,9 @@ def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
     table (NULL-padded; padded rows scribble on scratch page 0).
     ``expert_ffn(layer, layer_params, h)`` -> (out [R, 1, D], eids
     [R, k]) replaces the feed-forward of an MoE config served from an
-    expert pool.  Returns (float32 logits [R, V], layer-0 physical
-    selection [R, KV, K], routed expert ids [L, R, k] or None)."""
+    expert pool; without it the feed-forward runs ``kernel``'s route.
+    Returns (float32 logits [R, V], layer-0 physical selection
+    [R, KV, K], routed expert ids [L, R, k] or None)."""
     k_pool, v_pool, s_pool = pools
     dev = k_pool.device
     t = torch.from_numpy(host).to(dev)
@@ -316,7 +319,7 @@ def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
         x = x + mlayers.attn_out(o.reshape(r, 1, cfg.n_heads, hd), lp)
         h2 = mlayers.rms_norm(x, lp["ln2"], cfg.norm_eps)
         if expert_ffn is None:
-            x = x + transformer.ffn(h2, lp, cfg)
+            x = x + transformer.ffn(h2, lp, cfg, kernel=kernel)
         else:
             y, eids = expert_ffn(li, lp, h2)
             x = x + y
@@ -328,15 +331,16 @@ def paged_decode(cfg: ArchConfig, params: dict, layer_params: list,
 
 def paged_prefill(cfg: ArchConfig, params: dict, layer_params: list,
                   pools: tuple, tokens: np.ndarray, start: int,
-                  t_valid: int, bt: np.ndarray, attend) -> torch.Tensor:
+                  t_valid: int, bt: np.ndarray, attend,
+                  kernel: str = "cuda") -> torch.Tensor:
     """One chunk of one request's prompt: ``t_valid <= len(tokens)``
     tokens from absolute position ``start``.  K/V go into the pools (in
     place) through the block table ``bt`` [NL], the touched pages'
     summaries are recomputed, and attention is causal over the
     block-table-gathered context.  An MoE config runs the capacity
     dispatch here whatever the engine's expert pool, as the reference's
-    prefill does.  Returns the float32 logits [V] of the chunk's last
-    valid token."""
+    prefill does, through ``kernel``'s route.  Returns the float32
+    logits [V] of the chunk's last valid token."""
     k_pool, v_pool, s_pool = pools
     dev = k_pool.device
     page = cfg.kv_page
@@ -379,7 +383,7 @@ def paged_prefill(cfg: ArchConfig, params: dict, layer_params: list,
                    cfg.logit_softcap)
         x = x + mlayers.attn_out(o, lp)
         h2 = mlayers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + transformer.ffn(h2, lp, cfg)
+        x = x + transformer.ffn(h2, lp, cfg, kernel=kernel)
     x = mlayers.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return transformer.logits_last(params, cfg,
                                    x[:, t_valid - 1:t_valid])[0]
@@ -404,9 +408,9 @@ class PagedEngine:
       the CUDA card and raises without one; ``"cpu"`` runs the plain
       PyTorch versions (the kernel wrappers dispatch on the tensors'
       device).
-    * ``kernel="cuda" | "torch"`` — the attention implementation:
-      ``"cuda"`` calls the kernel wrappers, ``"torch"`` the plain
-      versions even on the card (for comparison).
+    * ``kernel="cuda" | "torch"`` — the attention and capacity-dispatch
+      implementation: ``"cuda"`` calls the kernel wrappers, ``"torch"``
+      the plain versions even on the card (for comparison).
     * ``prefix_cache`` — share whole prompt pages across requests
       (copy-on-write); logits are bitwise-identical either way.
     * ``row_bucketing`` — pad ragged decode batches to power-of-two row
@@ -602,7 +606,7 @@ class PagedEngine:
         bt = self.allocator.table_array(req.rid, self.n_logical)
         logits = paged_prefill(self.cfg, self.params, self._layers,
                                self._pools, toks, job.start, job.n_tokens,
-                               bt, self._attend_prefill)
+                               bt, self._attend_prefill, self.kernel)
         req.computed += job.n_tokens
         # whole prompt pages materialised by this chunk become
         # attachable by later requests with the same prefix
@@ -652,7 +656,8 @@ class PagedEngine:
         return paged_decode(self.cfg, self.params, self._layers,
                             self._pools, host, self._attend_decode,
                             self.attend_probe,
-                            self._expert_ffn if self.ep else None)
+                            self._expert_ffn if self.ep else None,
+                            self.kernel)
 
     def _expert_ffn(self, li: int, lp: dict, h: torch.Tensor):
         """The decode step's expert FFN of layer ``li`` from the pool."""

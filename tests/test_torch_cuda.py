@@ -18,7 +18,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_plain
-from repro_torch.kernels.moe_dispatch import (moe_paged_down,
+from repro_torch.kernels.gather_spmm import gather_spmm, gather_spmm_plain
+from repro_torch.kernels.moe_dispatch import (moe_dispatch_matmul,
+                                              moe_dispatch_matmul_plain,
+                                              moe_paged_down,
                                               moe_paged_down_plain,
                                               moe_paged_gateup,
                                               moe_paged_gateup_plain)
@@ -312,3 +315,209 @@ def test_reduced_single_batch_engine_card_matches_cpu(dev):
         assert vars(engines[0].stats) == vars(engines[1].stats)
         assert sparse_decode_attn.launches - n == (
             11 * cfg.n_layers if sparse else 0)
+
+
+# -- the capacity dispatch's grouped GEMM ---------------------------------------
+
+def _expert_weights(dev, dtype, layout, e, k, n, gen):
+    """[E, K, N] weights of std K**-0.5 (the models' init scale, so
+    outputs are O(1)) as the port lays them out: ``"gate"`` a transposed
+    view of packed ``[E, 3, N, K]`` rows (K contiguous, as
+    we_gate/we_up), ``"down"`` a plane of packed ``[E, 3, K, N]`` rows (N
+    contiguous, as we_down), ``"dense"`` a contiguous ``[E, K, N]``."""
+    def draw(shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * k ** -0.5).to(dtype)
+    if layout == "gate":
+        return draw((e, 3, n, k))[:, 1].transpose(-1, -2)
+    if layout == "down":
+        return draw((e, 3, k, n))[:, 2]
+    return draw((e, k, n))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["gate", "down", "dense"])
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("t,d,e,f,bt", [
+    (256, 128, 4, 256, 64), (128, 256, 8, 128, 32), (512, 64, 2, 512, 128),
+    (96, 40, 5, 24, 16), (4096, 512, 128, 192, 16)])
+def test_moe_dispatch_matmul_kernel_matches_plain(dev, dtype, layout, order,
+                                                  t, d, e, f, bt):
+    """Random and sorted group ids, tiles that span several experts
+    (block_t 16 under 64-row tiles), ragged K and N tails (D=40, F=24),
+    and the three weight layouts, read in place."""
+    gen = torch.Generator(device=dev).manual_seed(t + d + f)
+    x = torch.randn((t, d), generator=gen, device=dev).to(_DT[dtype])
+    w = _expert_weights(dev, _DT[dtype], layout, e, d, f, gen)
+    nb = t // bt
+    if order == "sorted":
+        gids = torch.sort(torch.randint(0, e, (nb,), generator=gen,
+                                        device=dev)).values
+    else:
+        gids = torch.randint(0, e, (nb,), generator=gen, device=dev)
+    gids = gids.to(torch.int32)
+    n = moe_dispatch_matmul.launches
+    got = moe_dispatch_matmul(gids, x, w, block_t=bt)
+    torch.cuda.synchronize()
+    assert moe_dispatch_matmul.launches == n + 1
+    want = moe_dispatch_matmul_plain(gids, x, w, block_t=bt)
+    assert got.dtype == x.dtype and got.shape == (t, f)
+    tol = _tol(x.dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_moe_dispatch_matmul_unknown_group_ids_give_zero_rows(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((64, 32), generator=gen, device=dev).bfloat16()
+    w = torch.randn((3, 32, 16), generator=gen, device=dev).bfloat16()
+    gids = torch.tensor([0, -1, 3, 2], dtype=torch.int32, device=dev)
+    got = moe_dispatch_matmul(gids, x, w, block_t=16)
+    want = moe_dispatch_matmul_plain(gids, x, w, block_t=16)
+    assert not got[16:48].any() and not want[16:48].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_moe_dispatch_matmul_rejects_what_it_does_not_take(dev):
+    x = torch.randn((32, 64), device=dev).bfloat16()
+    w = torch.randn((2, 64, 48), device=dev).bfloat16()
+    gids = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        moe_dispatch_matmul(gids.long(), x, w, block_t=16)
+    with pytest.raises(TypeError):
+        moe_dispatch_matmul(gids, x, w.float(), block_t=16)
+    with pytest.raises(ValueError):
+        moe_dispatch_matmul(gids, x, w, block_t=8)
+    with pytest.raises(ValueError):
+        moe_dispatch_matmul(gids, x[:, :32], w, block_t=16)
+    with pytest.raises(ValueError):
+        moe_dispatch_matmul(gids, x.t().contiguous().t(), w, block_t=16)
+    with pytest.raises(ValueError):      # bf16 rows not 16-byte aligned
+        moe_dispatch_matmul(gids, x, w[..., 1:45], block_t=16)
+
+
+def test_moe_ffn_kernel_route_matches_torch_route(dev):
+    """The capacity dispatch with its three products through the kernel
+    against ``torch.matmul``, on packed experts, with pairs dropped."""
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.models import moe
+    cfg = dc_replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                     d_model=256, d_ff_expert=128, n_experts=16, top_k=4,
+                     param_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    x = torch.randn((2, 64, cfg.d_model), device=dev).bfloat16()
+    for factor in (1.25, 0.25):
+        n = moe_dispatch_matmul.launches
+        got = moe.moe_ffn(x, lp, cfg, factor, kernel="cuda")
+        assert moe_dispatch_matmul.launches == n + 3
+        want = moe.moe_ffn(x, lp, cfg, factor, kernel="torch")
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+# -- the ELL SpMM ---------------------------------------------------------------
+
+@pytest.mark.parametrize("vals_dtype,dense_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("float32", "bfloat16")])
+@pytest.mark.parametrize("m,j,nin,n", [(8, 4, 16, 128), (16, 8, 32, 256),
+                                       (4, 16, 64, 512), (33, 40, 70, 100),
+                                       (256, 16, 1024, 1024)])
+def test_gather_spmm_kernel_matches_plain(dev, vals_dtype, dense_dtype, m, j,
+                                          nin, n):
+    """Vector and element-wise column paths (N=100), rows of more than 32
+    entries, padding entries (val 0) and column ids outside [0, N_in)."""
+    gen = torch.Generator(device=dev).manual_seed(m + j)
+    cols = torch.randint(0, nin, (m, j), generator=gen, device=dev)
+    cols[0, 0], cols[-1, -1] = -1, nin
+    cols = cols.to(torch.int32)
+    vals = torch.randn((m, j), generator=gen, device=dev)
+    vals[:, -1] = 0
+    vals = vals.to(_DT[vals_dtype])
+    dense = torch.randn((nin, n), generator=gen, device=dev).to(
+        _DT[dense_dtype])
+    c = gather_spmm.launches
+    got = gather_spmm(cols, vals, dense)
+    torch.cuda.synchronize()
+    assert gather_spmm.launches == c + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, gather_spmm_plain(cols, vals, dense),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_gather_spmm_rejects_what_it_does_not_take(dev):
+    cols = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    vals = torch.ones((4, 2), device=dev)
+    dense = torch.ones((8, 16), device=dev)
+    with pytest.raises(TypeError):
+        gather_spmm(cols.long(), vals, dense)
+    with pytest.raises(TypeError):
+        gather_spmm(cols, vals.half(), dense)
+    with pytest.raises(ValueError):
+        gather_spmm(cols, vals[:, :1], dense)
+    with pytest.raises(ValueError):
+        gather_spmm(cols, vals, dense.t())
+
+
+# -- repairs: sparse_decode_attn at head_dim 256, gather_rows out of range ----
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("g", [8, 6, 16])
+def test_sparse_decode_kernel_head_dim_256(dev, kv_dtype, g):
+    """gemma-7b's head_dim: 4 query heads a block (G=6 leaves a chunk of
+    2), with and without the frontier."""
+    b, kv, d, s, p, page = 2, 1, 256, 128, 5, 16
+    gen = torch.Generator(device=dev).manual_seed(g)
+    q_dtype = torch.float32 if kv_dtype == "float32" else torch.bfloat16
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev).to(q_dtype)
+    k, v = (kv_quant(torch.randn((b, s, kv, d), generator=gen, device=dev),
+                     _DT[kv_dtype]) for _ in range(2))
+    idx = torch.randint(0, s // page, (b, kv, p), generator=gen,
+                        device=dev).to(torch.int32)
+    pos = 70
+    got = sparse_decode_attn(idx, q, k, v, page_size=page)
+    got_pos = sparse_decode_attn(idx, q, k, v, page_size=page, pos=pos)
+    torch.cuda.synchronize()
+    tol = _tol(q_dtype)
+    for a, want in (
+            (got, sparse_decode_attn_plain(idx, q, k, v, page_size=page)),
+            (got_pos, attend_pages(q, k, v, idx, pos, page))):
+        torch.testing.assert_close(a.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_single_batch_engine_head_dim_256_on_the_card(dev):
+    """The single-batch sparse decode of a head_dim-256 config (gemma-7b's
+    width of head) runs its kernel and agrees with the CPU."""
+    from dataclasses import replace as dc_replace
+    cfg = dc_replace(get_config("gemma-7b").reduced(), head_dim=256)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 16))
+    engines = [Engine(cfg, params, max_len=32, sparse=True, device=device)
+               for device in ("cuda", "cpu")]
+    n = sparse_decode_attn.launches
+    outs = [eng.generate({"tokens": toks}, 6) for eng in engines]
+    assert sparse_decode_attn.launches - n == 5 * cfg.n_layers
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_allclose(engines[0].logits.cpu().numpy(),
+                               engines[1].logits.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_gather_rows_out_of_range_ids_are_zero_rows_as_on_the_cpu(dev,
+                                                                  dtype):
+    n, d = 16, 24
+    table = kv_quant(torch.randn((n, d), device=dev), _DT[dtype])
+    for idx_dtype in (torch.int32, torch.int64):
+        ids = torch.tensor([3, -1, n, n + 7, 0], dtype=idx_dtype,
+                           device=dev)
+        got = gather_rows(ids, table)
+        want = gather_rows_plain(ids.cpu(), table.cpu())
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got, gather_rows_plain(ids, table))
+        assert not got[1:4].any()
+        assert torch.equal(got[0], table[3])

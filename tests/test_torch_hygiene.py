@@ -74,8 +74,8 @@ def test_nvcc_command_targets_hopper(monkeypatch, tmp_path):
     assert cmd[-1].endswith("csrc/paged_decode_attn.cu")
     assert {"-shared", "-O3"} <= set(cmd)
     assert _build.sources() == ["flash_prefill", "gather_rows",
-                                "moe_dispatch", "paged_decode_attn",
-                                "sparse_decode_attn"]
+                                "gather_spmm", "moe_dispatch",
+                                "paged_decode_attn", "sparse_decode_attn"]
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch):
