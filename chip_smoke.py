@@ -10,7 +10,9 @@ final result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. every CUDA kernel built from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc -Xptxas -v`` (registers, shared memory, spills printed);
+   ``nvcc -Xptxas -v`` (registers, shared memory, spills printed; for
+   each tensor-core ``flash_prefill`` instantiation one line with its
+   dynamic shared memory too);
 3. each kernel against its plain PyTorch version at the serve path's
    shapes, with times (CUDA events), the plain version's time, the
    bound (bytes or operations at the card's peak rates) and one
@@ -49,15 +51,19 @@ final result line):
     qwen3-moe's heads (KV=4, G=16) on the single-batch MoE cache, and
     ``gather_rows`` at the embedding lookups of a decode step and of the
     batched prefill (and on ids outside the table, zero rows as on the
-    CPU), timed beside their bound, the plain versions and a PyTorch
+    CPU), and ``flash_prefill`` at the path's batched prefill (B=8,
+    S=1536) and dense decode step (one query row at the prompt's end),
+    timed beside their bound, the plain versions and a PyTorch
     yardstick;
 14. the single-batch ``Engine`` on qwen2-1.5b at full width in bfloat16:
     a batch of 8 prompts of 1536 tokens prefilled together, 32 tokens
     decoded in lockstep with TopK sparse attention, then a few dense
     steps — launches, decode ms/step, prefill tokens/s, NSB hit rate,
-    peak memory and one profiled decode step;
+    peak memory, one profiled decode step and one profiled prefill (the
+    share of ``flash_prefill`` in its device time);
 15. teacher-forced check of ``sparse_decode_attn`` in all 28 layers of
-    one sparse step;
+    one sparse step, and of ``flash_prefill`` in all 28 layers of one
+    batched prefill;
 16. full width in float32, ``kernel="cuda"`` against ``"torch"``: TopK
     selections of every layer, logits and tokens;
 17. the reduced single-batch ``Engine`` (sparse and dense): the card
@@ -67,12 +73,15 @@ final result line):
     paged prefill chunk, the single-batch prefill and decode of
     qwen3-moe-235b-a22b), bfloat16 and float32, through the packed
     experts' strided gate, up and down views; timed beside its bound,
-    the plain version and ``torch.matmul`` over ``[E, B*cap, D]``;
+    the plain version and ``torch.matmul`` over ``[E, B*cap, D]``; and
+    ``flash_prefill`` at the single-batch MoE prefill (B=8, S=1024,
+    H=64, KV=4);
 19. the single-batch ``Engine`` on qwen3-moe-235b-a22b at full width,
     cut to 8 layers, in bfloat16: 8 prompts of 1024 tokens prefilled
     together, 16 tokens decoded in lockstep with TopK sparse attention
     and the capacity dispatch — launches, decode ms/step, prefill
-    tokens/s, peak memory and one profiled decode step;
+    tokens/s, peak memory, one profiled decode step and one profiled
+    prefill;
 20. teacher-forced check of every kernel of that path in all 8 layers:
     the grouped GEMMs and ``flash_prefill`` (B=8, S=1024, H=64, KV=4)
     of one prefill, then the grouped GEMMs and ``sparse_decode_attn``
@@ -90,6 +99,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 the environment a JSON record of every number is written there too.
 The script needs a CUDA card and the repository around it: without
 either it exits non-zero.
+
+``python3 chip_smoke.py --flash-rows [--src DIR]`` runs phase 1 and only
+the ``flash_prefill`` rows at every shape of ``flash_shapes`` (checked
+and timed), importing the port from ``DIR/src`` (default: this
+checkout's), and prints them as one JSON line: two checkouts timed in
+one process each, on one card, compare the kernel's versions.
 """
 
 from __future__ import annotations
@@ -105,7 +120,6 @@ from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +140,12 @@ SPARSE_TPU = "src/repro/kernels/sparse_decode_attn.py:98"
 GATHER_TPU = "src/repro/kernels/gather_rows.py:45"
 DISPATCH_TPU = "src/repro/kernels/moe_dispatch.py:81"
 SPMM_TPU = "src/repro/kernels/gather_spmm.py:52"
+
+# the device kernels of flash_prefill.cu (tensor cores, the merge of the
+# key splits, the float32 loop) and, for --src of an older checkout, the
+# first port's flash_prefill_kernel
+FLASH_KERNELS = ("flash_wgmma_kernel", "flash_merge_kernel",
+                 "flash_simt_kernel", "flash_prefill_kernel")
 
 # the single-batch path: 8 prompts of 1536 tokens, 32 generated, TopK 64
 # of 98 pages of 16
@@ -208,6 +228,39 @@ def phase_build() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"[ptxas] {line.strip()}")
     record["ptxas"] = reports
+    flash_ptxas()
+
+
+def flash_ptxas() -> None:
+    """One line per instantiation of the tensor-core ``flash_prefill``:
+    registers and spills from ``-Xptxas -v``, and its dynamic shared
+    memory (which ptxas does not see)."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_prefill import wgmma_smem_bytes
+    rows = []
+    for block in _build.ptxas_reports["flash_prefill"].split(
+            "Compiling entry function")[1:]:
+        kern = re.search(r"flash_wgmma_kernelILi(\d+)ELb(\d)", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if not (kern and regs and spill):
+            continue
+        d, int8 = int(kern[1]), kern[2] == "1"
+        smem = wgmma_smem_bytes(d, torch.int8 if int8 else torch.bfloat16)
+        rows.append({"D": d, "int8": int8, "registers": int(regs[1]),
+                     "spill_stores": int(spill[1]),
+                     "spill_loads": int(spill[2]), "smem_bytes": smem})
+        log(f"[ptxas] flash_wgmma_kernel D={d} {'int8' if int8 else 'bf16'} "
+            f"K/V: {regs[1]} registers, {spill[1]} bytes spill stores, "
+            f"{spill[2]} bytes spill loads, {smem} bytes dynamic shared "
+            f"memory")
+    record["flash_prefill_ptxas"] = rows
+    assert len(rows) == 8, "not every flash_wgmma_kernel reported"
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -273,6 +326,98 @@ def prefill_bound(q, k, q_offset) -> tuple[float, str, dict]:
     t_f = flops / PEAK_FLOPS[dtype_name(q.dtype)] * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), {
         "bytes": nbytes, "flops": flops}
+
+
+def flash_shapes() -> dict:
+    """(B, Sq, Sk, H, KV, q_offset) at D=128 of every ``flash_prefill``
+    call the serve paths make: a paged prefill chunk at each config's
+    heads, each config's single-batch prefill and the single-batch dense
+    decode step (one query row at the prompt's end)."""
+    sk = -(-(PROMPT + GEN) // 16) * 16
+    sb_len = -(-(SB_PROMPT + SB_GEN) // 16) * 16
+    return {
+        "qwen2-1.5b paged chunk": (1, CHUNK, sk, 12, 2, sk - CHUNK),
+        "qwen3-moe paged chunk": (1, CHUNK, sk, 64, 4, sk - CHUNK),
+        "qwen2-1.5b single-batch prefill": (SB_BATCH, SB_PROMPT, SB_PROMPT,
+                                            12, 2, 0),
+        "qwen3-moe single-batch prefill": (MSB_BATCH, MSB_PROMPT, MSB_PROMPT,
+                                           64, 4, 0),
+        "qwen2-1.5b dense decode": (SB_BATCH, 1, sb_len, 12, 2, SB_PROMPT)}
+
+
+def flash_rows(gen, tags) -> list:
+    """``flash_prefill`` in bfloat16 at the named ``flash_shapes``: the
+    kernel against the plain version (1e-2 abs + rel), then its time
+    (CUDA events, and the profiler's device time a call) beside the
+    bound, the plain version's and that of
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and the causal
+    (q_offset 0) or offset mask.  Returns one row each; a row that
+    disagrees has ``ok`` False."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.layers import chunked_attention
+    rows = []
+    for tag in tags:
+        b, sq, sk, h, kv, off = flash_shapes()[tag]
+        q = torch.randn((b, sq, h, 128), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, sk, kv, 128), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        got = flash_prefill(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+        err, ok = close_enough(got, chunked_attention(
+            q, k, v, q_offset=off, chunk=min(1024, sk)), 1e-2)
+        del got
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if off == 0 and sq == sk:
+            def sdpa():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        else:
+            mask = (torch.arange(sk, device="cuda")[None, :]
+                    <= off + torch.arange(sq, device="cuda")[:, None])
+
+            def sdpa():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True)
+
+        def plain():
+            chunked_attention(q, k, v, q_offset=off, chunk=min(1024, sk))
+        bound, by, work = prefill_bound(q, k, off)
+        p1 = cuda_ms(plain, iters=3, warmup=1)
+        k_ms = cuda_ms(lambda: flash_prefill(q, k, v, q_offset=off))
+        lib_ms = cuda_ms(sdpa)
+        p2 = cuda_ms(plain, iters=3, warmup=1)
+        # the kernels' own device time a call (merge pass included), which
+        # the events' time exceeds where the host's launch is slower; only
+        # if the profiler recorded all 10 launches (late in a long process
+        # it was seen to record fewer)
+        prof = profile_call(lambda: [flash_prefill(q, k, v, q_offset=off)
+                                     for _ in range(10)], FLASH_KERNELS)
+        n_main = sum(n for name, n in prof.get("counted_n", {}).items()
+                     if name != "flash_merge_kernel")
+        dev_ms = (sum(prof["counted_ms"].values()) / 10 if n_main == 10
+                  else None)
+        row = dict(shape=tag, B=b, Sq=sq, Sk=sk, H=h, KV=kv, q_offset=off,
+                   ms=k_ms, device_ms=dev_ms, plain_ms=min(p1, p2),
+                   bound_ms=bound, bound_by=by, library_ms=lib_ms, work=work,
+                   tflops=work["flops"] / k_ms / 1e9, max_abs_err=err, ok=ok)
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"[flash_prefill] bf16 {tag} B={b} Sq={sq} Sk={sk} H={h} KV={kv}"
+            f" D=128 q_offset={off}: max |err| {err:.3e} (tolerance 0.01 "
+            f"abs + 0.01 rel) {'ok' if ok else 'FAIL'}; kernel {k_ms:.4f} "
+            f"ms = {row['tflops']:.1f} TFLOP/s of causal work (device time "
+            f"{dev} a call), plain {row['plain_ms']:.4f} ms, bound "
+            f"{bound:.5f} ms ({by}: {work}), library "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms")
+        record.setdefault("flash_prefill_rows", []).append(row)
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+        free_cuda()
+    return rows
 
 
 def phase_kernels() -> None:
@@ -408,25 +553,33 @@ def profile_step(eng, count: tuple = ()) -> dict:
     """Device busy share and top kernels of one ``eng.step()``; with
     ``count``, also the device ms of the kernels whose names hold each
     of those substrings."""
+    return profile_call(eng.step, count)
+
+
+def profile_call(fn, count: tuple = ()) -> dict:
+    """``profile_step`` for any call ``fn()``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    spans, by_name, n_by_name = [], {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             s, t = e.time_range.start, e.time_range.end
             spans.append((s, t))
             by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+            n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
     if not spans:
         return {"busy_share": None, "wall_ms": wall_us / 1e3}
     counted = {c: sum(us for n, us in by_name.items() if c in n) / 1e3
                for c in count}
+    counted_n = {c: sum(k for n, k in n_by_name.items() if c in n)
+                 for c in count}
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, t in spans[1:]:
@@ -440,7 +593,7 @@ def profile_step(eng, count: tuple = ()) -> dict:
     return {"busy_share": busy / wall_us, "wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3, "n_kernels": len(spans),
             "top": [{"name": n[:90], "ms": us / 1e3} for n, us in top],
-            "counted_ms": counted}
+            "counted_ms": counted, "counted_n": counted_n}
 
 
 def drive_serve(eng, work, kernels: dict) -> dict:
@@ -491,6 +644,28 @@ def log_profile(tag: str, profiled) -> None:
     else:
         log(f"[{tag}] device busy share: not measured (the profiler "
             "recorded no device events)")
+
+
+def profile_prefill(tag: str, eng, tokens) -> dict:
+    """One single-batch ``eng.prefill`` under the profiler: its device
+    time, and the share of it in the ``flash_prefill`` kernels."""
+    prof = profile_call(lambda: eng.prefill({"tokens": tokens}),
+                        FLASH_KERNELS)
+    if prof["busy_share"] is None:
+        log(f"[{tag}] profiled prefill: not measured (the profiler "
+            "recorded no device events)")
+        return prof
+    fp = sum(prof["counted_ms"].values())
+    prof["flash_prefill_share"] = fp / prof["device_ms"]
+    log(f"[{tag}] profiled prefill of {tokens.numel()} tokens: wall "
+        f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+        f"over {prof['n_kernels']} kernels; flash_prefill "
+        + ", ".join(f"{n} {ms:.2f} ms ({prof['counted_n'][n]} launches)"
+                    for n, ms in prof["counted_ms"].items())
+        + f" = {100 * prof['flash_prefill_share']:.1f}% of device time; "
+        f"top: " + "; ".join(f"{t['ms']:.2f} ms {t['name'][:60]}"
+                             for t in prof["top"][:5]))
+    return prof
 
 
 def phase_serve(state: dict) -> None:
@@ -1403,6 +1578,11 @@ def phase_sb_kernels() -> None:
     if not same:
         bad.append("gather_rows out of range")
     del table
+    # flash_prefill at the single-batch path's own shapes: its batched
+    # prefill and its dense decode step
+    bad += [f"flash_prefill {r['shape']}" for r in flash_rows(
+        gen, ("qwen2-1.5b single-batch prefill", "qwen2-1.5b dense decode"))
+        if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
 
@@ -1460,7 +1640,7 @@ def phase_sb_serve(state: dict) -> None:
     sparse_logits = eng.logits
     # dense: a fresh prefill of the same prompts, then a few steps
     dense = Engine(cfg, params, max_len=max_len, sparse=False, device="cuda")
-    dense.prefill({"tokens": tokens})
+    prefill_prof = profile_prefill("sb serve", dense, tokens)
     dense_s = []
     for _ in range(SB_DENSE_STEPS):
         torch.cuda.synchronize()
@@ -1506,7 +1686,7 @@ def phase_sb_serve(state: dict) -> None:
         "dense_decode_ms_median": float(np.median(dms)),
         "launches": launches, "nsb_hit_rate": st.hot_hit_rate,
         "pages_touched": st.pages_touched, "profile": profiled,
-        "max_memory_gib": peak}
+        "prefill_profile": prefill_prof, "max_memory_gib": peak}
     assert out.shape == (SB_BATCH, SB_GEN) and st.steps == SB_GEN - 1
     assert launches["sparse_decode_attn"] == st.steps * L
     assert launches["flash_prefill"] == (2 + SB_DENSE_STEPS) * L
@@ -1520,6 +1700,8 @@ def phase_sb_serve(state: dict) -> None:
 def phase_sb_teacher_forced(state: dict) -> None:
     import torch
 
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import chunked_attention
     from repro_torch.models.sparse_attention import attend_pages
     eng = state["sb_engine"]
     tol = 1e-2
@@ -1547,6 +1729,40 @@ def phase_sb_teacher_forced(state: dict) -> None:
                                    "failed_layers": sorted(set(fails))}
     assert len(errs) == eng.cfg.n_layers, "not every layer checked"
     assert not fails, f"layers {sorted(set(fails))} disagree"
+
+    # flash_prefill in every layer of one batched prefill (B=8, S=1536,
+    # H=12, KV=2, q_offset 0): each layer's own q, k, v to the kernel and
+    # to the plain version; the layer goes on from the kernel's output
+    perrs: dict[int, float] = {}
+    pfails = []
+    attn = transformer.flash_prefill
+
+    def checked_attn(q, k, v, *, q_offset, causal, chunk, logit_softcap):
+        out = attn(q, k, v, q_offset=q_offset, causal=causal, chunk=chunk,
+                   logit_softcap=logit_softcap)
+        err, ok = close_enough(out, chunked_attention(
+            q, k, v, causal=causal, q_offset=q_offset, chunk=chunk,
+            logit_softcap=logit_softcap), tol)
+        li = len(perrs)
+        perrs[li] = err
+        if not ok:
+            pfails.append(li)
+        return out
+    transformer.flash_prefill = checked_attn
+    try:
+        eng.prefill({"tokens": sb_prompts(eng.cfg)})
+    finally:
+        transformer.flash_prefill = attn
+    torch.cuda.synchronize()
+    log(f"[sb teacher-forced] flash_prefill bf16 full width (B={SB_BATCH} "
+        f"S={SB_PROMPT} H=12 KV=2 q_offset 0): {len(perrs)} layers checked, "
+        f"max |kernel - plain| per layer "
+        f"{[round(perrs[i], 5) for i in sorted(perrs)]} (tolerance {tol:g} "
+        f"abs + {tol:g} rel)")
+    record["sb_teacher_forced"]["flash_prefill"] = {
+        "max_abs_err": perrs, "failed_layers": pfails}
+    assert len(perrs) == eng.cfg.n_layers, "not every layer's prefill checked"
+    assert not pfails, f"flash_prefill disagrees in layers {pfails}"
 
 
 def phase_sb_f32(state: dict) -> None:
@@ -1752,6 +1968,9 @@ def phase_dispatch_kernels() -> None:
             del x, h, products, a, wt
         del w
         free_cuda()
+    # flash_prefill at the single-batch MoE path's prefill
+    bad += [f"flash_prefill {r['shape']}" for r in flash_rows(
+        gen, ("qwen3-moe single-batch prefill",)) if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
 
@@ -1800,6 +2019,10 @@ def phase_msb_serve(state: dict) -> None:
     state["msb_launches"] = launches
     out = np.stack([t.cpu().numpy() for t in toks], axis=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logits = eng.logits
+    # the same prompts prefilled once more under the profiler (after the
+    # counts and the peak were read; phase 20 prefills afresh)
+    prefill_prof = profile_prefill("msb serve", eng, tokens)
     st = eng.stats
     L = cfg.n_layers
     ms = np.asarray(decode_s) * 1e3
@@ -1829,13 +2052,13 @@ def phase_msb_serve(state: dict) -> None:
         "decode_ms_median": float(np.median(ms)),
         "decode_steps_timed": len(ms), "launches": launches,
         "nsb_hit_rate": st.hot_hit_rate, "profile": profiled,
-        "max_memory_gib": peak}
+        "prefill_profile": prefill_prof, "max_memory_gib": peak}
     assert out.shape == (MSB_BATCH, MSB_GEN) and st.steps == MSB_GEN - 1
     assert launches["moe_dispatch_matmul"] == 3 * L * (1 + st.steps)
     assert launches["sparse_decode_attn"] == st.steps * L
     assert launches["flash_prefill"] == L
     assert launches["gather_rows"] == 1 + st.steps
-    assert bool(torch.isfinite(eng.logits).all())
+    assert bool(torch.isfinite(logits).all())
     assert ((out >= 0) & (out < cfg.vocab)).all()
     assert peak < 80
     state.update(msb_engine=eng, msb_tokens=tokens)
@@ -2029,7 +2252,30 @@ def _map(tree, fn):
             for k, v in tree.items()}
 
 
-def main() -> int:
+def flash_rows_only(src: Path) -> int:
+    """``--flash-rows``: the card, then every ``flash_shapes`` row of the
+    port under ``src``, as one JSON line."""
+    import torch
+    run_phase("1 card", phase_card)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows: list = []
+    run_phase("flash_prefill rows", lambda: rows.extend(
+        flash_rows(gen, list(flash_shapes()))))
+    print(json.dumps({"src": str(src), "card": record.get("card"),
+                      "flash_prefill_rows": rows}, default=str))
+    return 1 if failures or not all(r["ok"] for r in rows) else 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Run with ``argv`` (no arguments when None)."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--flash-rows", action="store_true",
+                    help="time only the flash_prefill rows")
+    ap.add_argument("--src", type=Path, default=ROOT,
+                    help="checkout whose src/ holds the port")
+    args = ap.parse_args(argv or [])
+    src = args.src.resolve() / "src"
     try:
         import torch
     except ImportError:
@@ -2038,14 +2284,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the repro_torch package is not under {SRC}; "
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the repro_torch package is not under {src}; "
               "run the script from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.flash_rows:
+        return flash_rows_only(src)
     t0 = time.perf_counter()
     state: dict = {}
     run_phase("1 card", phase_card)
@@ -2147,4 +2395,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -109,23 +109,37 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take(dev):
                           page_size=8)
 
 
+def _flash_inputs(dev, dtype, sq, sk, h, kv, d, b=2):
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    q_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(q_dtype)
+    k, v = (kv_quant(torch.randn((b, sk, kv, d), generator=gen,
+                                 device=dev), _DT[dtype]) for _ in range(2))
+    return q, k, v
+
+
+# B=2 throughout.  The first five shapes are the first port's; then
+# head_dim 256, G=16, Sq=1 (the dense decode step), Sq=200 (two ragged
+# 128-row tiles), and shapes whose blocks (2 * H * ceil(Sq / 128)) are
+# far fewer than the card's SMs, so the bf16 kernel splits their keys
+# and merges the splits (``plan(...).splits > 1``, checked on the CPU)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("sq,sk,h,kv,d,q_offset", [
     (16, 16, 4, 2, 32, 0), (37, 53, 6, 2, 64, 16), (5, 100, 12, 2, 128, 95),
-    (20, 20, 4, 1, 32, 0), (33, 64, 4, 4, 128, 0)])
+    (20, 20, 4, 1, 32, 0), (33, 64, 4, 4, 128, 0),
+    (40, 90, 4, 2, 256, 50), (37, 80, 32, 2, 64, 43),
+    (1, 150, 12, 2, 128, 149), (200, 200, 4, 2, 128, 0),
+    (200, 700, 4, 2, 128, 500), (1, 1000, 16, 1, 256, 700),
+    (37, 400, 6, 6, 32, 363)])
 def test_flash_prefill_kernel_matches_plain(dev, dtype, sq, sk, h, kv, d,
                                             q_offset):
-    gen = torch.Generator(device=dev).manual_seed(sq + sk)
-    q_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
-    q = torch.randn((2, sq, h, d), generator=gen, device=dev).to(q_dtype)
-    k, v = (kv_quant(torch.randn((2, sk, kv, d), generator=gen,
-                                 device=dev), _DT[dtype]) for _ in range(2))
+    q, k, v = _flash_inputs(dev, dtype, sq, sk, h, kv, d)
     n = flash_prefill.launches
     got = flash_prefill(q, k, v, q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_prefill.launches == n + 1
     want = chunked_attention(q, k, v, q_offset=q_offset, chunk=32)
-    tol = _tol(q_dtype)
+    tol = _tol(q.dtype)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
 
@@ -135,6 +149,29 @@ def test_flash_prefill_kernel_refuses_softcap(dev):
     with pytest.raises(NotImplementedError):
         flash_prefill(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous(),
                       logit_softcap=30.0)
+
+
+def test_flash_prefill_bf16_refuses_other_head_dims(dev):
+    q, k, v = _flash_inputs(dev, "bfloat16", 8, 8, 4, 2, 48)
+    n = flash_prefill.launches
+    with pytest.raises(ValueError):
+        flash_prefill(q, k, v)
+    with pytest.raises(TypeError):           # bf16 q against float32 K/V
+        flash_prefill(q, k.float(), v.float())
+    assert flash_prefill.launches == n
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_flash_prefill_split_is_bitwise_repeatable(dev, dtype):
+    """The key splits merge in a fixed order: the same inputs give the
+    same bits, and one call counts one launch, merge pass included."""
+    q, k, v = _flash_inputs(dev, dtype, 200, 700, 4, 2, 128)
+    n = flash_prefill.launches
+    a = flash_prefill(q, k, v, q_offset=500)
+    b = flash_prefill(q, k, v, q_offset=500)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == n + 2
+    assert torch.equal(a, b)
 
 
 def test_reduced_engine_card_matches_cpu(dev):
