@@ -11,8 +11,9 @@ final result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. every CUDA kernel built from ``src/repro_torch/kernels/csrc`` with
    ``nvcc -Xptxas -v`` (registers, shared memory, spills printed; for
-   each tensor-core ``flash_prefill`` instantiation one line with its
-   dynamic shared memory too);
+   each tensor-core ``flash_prefill`` and grouped-GEMM instantiation one
+   line with its dynamic shared memory too; a grouped-GEMM instantiation
+   that spills fails the phase);
 3. each kernel against its plain PyTorch version at the serve path's
    shapes, with times (CUDA events), the plain version's time, the
    bound (bytes or operations at the card's peak rates) and one
@@ -71,9 +72,11 @@ final result line):
 18. the capacity dispatch's grouped GEMM ``moe_dispatch_matmul`` against
     its plain version at the three shapes the MoE paths give it (a
     paged prefill chunk, the single-batch prefill and decode of
-    qwen3-moe-235b-a22b), bfloat16 and float32, through the packed
-    experts' strided gate, up and down views; timed beside its bound,
-    the plain version and ``torch.matmul`` over ``[E, B*cap, D]``; and
+    qwen3-moe-235b-a22b) in bfloat16 and at the chunk in float32,
+    through the packed experts' strided gate, up and down views; the
+    nine bfloat16 rows timed (CUDA events and the profiler's device
+    time) beside the bound, the plain version and ``torch.matmul`` over
+    ``[E, B*cap, D]``; and
     ``flash_prefill`` at the single-batch MoE prefill (B=8, S=1024,
     H=64, KV=4);
 19. the single-batch ``Engine`` on qwen3-moe-235b-a22b at full width,
@@ -105,6 +108,9 @@ the ``flash_prefill`` rows at every shape of ``flash_shapes`` (checked
 and timed), importing the port from ``DIR/src`` (default: this
 checkout's), and prints them as one JSON line: two checkouts timed in
 one process each, on one card, compare the kernel's versions.
+``--dispatch-rows [--src DIR]`` does the same for the grouped GEMM
+``moe_dispatch_matmul`` at its nine rows (three path shapes x gate, up,
+down).
 """
 
 from __future__ import annotations
@@ -229,6 +235,7 @@ def phase_build() -> None:
                 log(f"[ptxas] {line.strip()}")
     record["ptxas"] = reports
     flash_ptxas()
+    dispatch_ptxas()
 
 
 def flash_ptxas() -> None:
@@ -261,6 +268,40 @@ def flash_ptxas() -> None:
             f"memory")
     record["flash_prefill_ptxas"] = rows
     assert len(rows) == 8, "not every flash_wgmma_kernel reported"
+
+
+def dispatch_ptxas() -> None:
+    """One line per instantiation of the grouped GEMM's tensor-core
+    kernel (128 x 256 tiles, B K- or MN-major): registers and spills from
+    ``-Xptxas -v`` and its dynamic shared memory.  Fails if one
+    spills."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_dispatch import gemm_smem_bytes
+    rows = []
+    for block in _build.ptxas_reports["moe_dispatch"].split(
+            "Compiling entry function")[1:]:
+        kern = re.search(r"grouped_wgmma_kernelILb(\d)", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if not (kern and regs and spill):
+            continue
+        mn = kern[1] == "1"
+        smem = gemm_smem_bytes()
+        rows.append({"BM": 128, "BN": 256, "mn_major": mn,
+                     "registers": int(regs[1]),
+                     "spill_stores": int(spill[1]),
+                     "spill_loads": int(spill[2]), "smem_bytes": smem})
+        log(f"[ptxas] grouped_wgmma_kernel 128x256 "
+            f"{'MN' if mn else 'K'}-major w: {regs[1]} registers, "
+            f"{spill[1]} bytes spill stores, {spill[2]} bytes spill loads, "
+            f"{smem} bytes dynamic shared memory")
+    record["moe_dispatch_ptxas"] = rows
+    assert len(rows) == 2, "not every grouped_wgmma_kernel reported"
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    assert not spilled, f"grouped_wgmma_kernel spills: {spilled}"
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -648,18 +689,25 @@ def log_profile(tag: str, profiled) -> None:
 
 def profile_prefill(tag: str, eng, tokens) -> dict:
     """One single-batch ``eng.prefill`` under the profiler: its device
-    time, and the share of it in the ``flash_prefill`` kernels."""
+    time, and the shares of it in the ``flash_prefill`` kernels and in
+    the grouped GEMM's (``grouped_*``, MoE configs)."""
     prof = profile_call(lambda: eng.prefill({"tokens": tokens}),
-                        FLASH_KERNELS)
+                        FLASH_KERNELS + ("grouped_",))
     if prof["busy_share"] is None:
         log(f"[{tag}] profiled prefill: not measured (the profiler "
             "recorded no device events)")
         return prof
+    gemm_ms = prof["counted_ms"].pop("grouped_")
+    gemm_n = prof["counted_n"].pop("grouped_")
     fp = sum(prof["counted_ms"].values())
     prof["flash_prefill_share"] = fp / prof["device_ms"]
+    prof["grouped_gemm"] = {"ms": gemm_ms, "launches": gemm_n,
+                            "share": gemm_ms / prof["device_ms"]}
     log(f"[{tag}] profiled prefill of {tokens.numel()} tokens: wall "
         f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
-        f"over {prof['n_kernels']} kernels; flash_prefill "
+        f"over {prof['n_kernels']} kernels; grouped GEMM {gemm_ms:.2f} ms "
+        f"({gemm_n} launches, {100 * gemm_ms / prof['device_ms']:.1f}%); "
+        f"flash_prefill "
         + ", ".join(f"{n} {ms:.2f} ms ({prof['counted_n'][n]} launches)"
                     for n, ms in prof["counted_ms"].items())
         + f" = {100 * prof['flash_prefill_share']:.1f}% of device time; "
@@ -1223,7 +1271,7 @@ def phase_moe_serve(state: dict) -> None:
 
 # device kernels that run the expert products: the grouped GEMM, and the
 # cuBLAS GEMMs of torch.matmul on an H100 (nvjet, sm90_xmma, cutlass)
-GEMM_NAMES = ("grouped_mma", "nvjet", "gemm", "cutlass")
+GEMM_NAMES = ("grouped_", "nvjet", "gemm", "cutlass")
 
 
 def moe_chunk_cost(eng, cfg) -> None:
@@ -1905,6 +1953,78 @@ def dispatch_bound(x, w, n_out) -> tuple[float, str, dict]:
         "bytes": nbytes, "flops": flops}
 
 
+def dispatch_rows(gen, plain: bool) -> list:
+    """``moe_dispatch_matmul`` in bfloat16 at the nine rows of the MoE
+    paths (``dispatch_shapes`` x gate, up, down) through one layer's
+    packed experts: the kernel against the plain version (1e-2 abs +
+    rel), then its time (CUDA events, and the profiler's device time a
+    call of the ``grouped_*`` kernels) beside the bound and
+    ``torch.matmul`` over ``[E, B*cap, K] x [E, K, N]``; with ``plain``
+    the plain version's time too.  Returns one row each; a row that
+    disagrees has ``ok`` False."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch_matmul,
+                                                  moe_dispatch_matmul_plain)
+    cfg = moe_config()
+    e, f, d = cfg.n_experts, cfg.d_ff_expert, cfg.d_model
+    w = packed_experts(gen, torch.bfloat16, cfg)
+    rows = []
+    for tag, rpe in dispatch_shapes(cfg):
+        t = e * rpe
+        gids = torch.arange(e, dtype=torch.int32, device="cuda")
+        gids = gids.repeat_interleave(rpe // 16)
+        x = torch.randn((t, d), generator=gen, device="cuda").bfloat16()
+        h = torch.randn((t, f), generator=gen, device="cuda").bfloat16()
+        for name, a, wt in (("gate", x, w["we_gate"]), ("up", x, w["we_up"]),
+                            ("down", h, w["we_down"])):
+            def kern(a=a, wt=wt):
+                return moe_dispatch_matmul(gids, a, wt, block_t=16)
+
+            def slow(a=a, wt=wt):
+                return moe_dispatch_matmul_plain(gids, a, wt, block_t=16)
+            got = kern()
+            torch.cuda.synchronize()
+            err, ok = close_enough(got, slow(), 1e-2)
+            del got
+            bound, by, work = dispatch_bound(a, wt, t * wt.shape[2])
+            ae = a.view(e, rpe, -1)
+            p1 = cuda_ms(slow, iters=3, warmup=1) if plain else None
+            k_ms = cuda_ms(kern)
+            lib_ms = cuda_ms(lambda ae=ae, wt=wt: torch.matmul(ae, wt))
+            p2 = cuda_ms(slow, iters=3, warmup=1) if plain else None
+            # device time of the GEMM's kernels a call, only if the
+            # profiler recorded all 10 main launches
+            names = ("grouped_wgmma", "grouped_mma", "grouped_tiles")
+            prof = profile_call(lambda: [kern() for _ in range(10)], names)
+            n_main = sum(prof.get("counted_n", {}).get(k, 0)
+                         for k in names[:2])
+            dev_ms = (sum(prof["counted_ms"].values()) / 10 if n_main == 10
+                      else None)
+            row = dict(shape=tag, product=name, T=t, K=a.shape[1],
+                       N=wt.shape[2], ms=k_ms, device_ms=dev_ms,
+                       plain_ms=min(p1, p2) if plain else None,
+                       bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                       work=work, tflops=work["flops"] / k_ms / 1e9,
+                       max_abs_err=err, ok=ok)
+            dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            pl = "" if not plain else f"plain {row['plain_ms']:.4f} ms, "
+            log(f"[moe_dispatch_matmul] bf16 {tag} {name} T={t} "
+                f"K={a.shape[1]} N={wt.shape[2]} w strides "
+                f"{tuple(wt.stride())}: max |err| {err:.3e} (tolerance "
+                f"0.01 abs + 0.01 rel) {'ok' if ok else 'FAIL'}; kernel "
+                f"{k_ms:.4f} ms = {row['tflops']:.1f} TFLOP/s (device time "
+                f"{dev} a call), {pl}bound {bound:.5f} ms ({by}: {work}), "
+                f"library torch.matmul {lib_ms:.4f} ms = "
+                f"{k_ms / lib_ms:.2f}x")
+            rows.append(row)
+        del x, h, a, wt, ae, kern, slow
+        free_cuda()
+    del w
+    free_cuda()
+    return rows
+
+
 def phase_dispatch_kernels() -> None:
     import torch
 
@@ -1913,61 +2033,38 @@ def phase_dispatch_kernels() -> None:
     cfg = moe_config()
     e, f, d = cfg.n_experts, cfg.d_ff_expert, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(4)
-    bad = []
-    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
-        w = packed_experts(gen, dt, cfg)
-        shapes = dispatch_shapes(cfg)
-        if dt == torch.float32:     # the f32 route: checked, not timed
-            shapes = shapes[:1]
-        for tag, rpe in shapes:
-            t = e * rpe
-            gids = torch.arange(e, dtype=torch.int32, device="cuda")
-            gids = gids.repeat_interleave(rpe // 16)
-            x = torch.randn((t, d), generator=gen, device="cuda").to(dt)
-            h = torch.randn((t, f), generator=gen, device="cuda").to(dt)
-            products = (("gate", x, w["we_gate"]), ("up", x, w["we_up"]),
-                        ("down", h, w["we_down"]))
-            for name, a, wt in products:
-                got = moe_dispatch_matmul(gids, a, wt, block_t=16)
-                torch.cuda.synchronize()
-                want = moe_dispatch_matmul_plain(gids, a, wt, block_t=16)
-                err, ok = close_enough(got, want, tol)
-                log(f"[moe_dispatch_matmul] {dtype_name(dt)} {tag} {name}: "
-                    f"T={t} K={a.shape[1]} N={wt.shape[2]} w strides "
-                    f"{tuple(wt.stride())}: max |err| {err:.3e} (tolerance "
-                    f"{tol:g} abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
-                record.setdefault("dispatch_checks", []).append(
-                    {"dtype": dtype_name(dt), "shape": tag, "product": name,
-                     "max_abs_err": err, "tol": tol, "ok": ok})
-                if not ok:
-                    bad.append(f"{dtype_name(dt)} {tag} {name}")
-                del got, want
-                if dt != torch.bfloat16 or name == "up":
-                    continue
-                iters = 3 if t > 50000 else 10
-                bound, by, work = dispatch_bound(a, wt, t * wt.shape[2])
-                ae = a.view(e, rpe, -1)
-                p1 = cuda_ms(lambda: moe_dispatch_matmul_plain(
-                    gids, a, wt, block_t=16), iters=iters, warmup=1)
-                k_ms = cuda_ms(lambda: moe_dispatch_matmul(
-                    gids, a, wt, block_t=16), iters=iters)
-                lib_ms = cuda_ms(lambda: torch.matmul(ae, wt), iters=iters)
-                p2 = cuda_ms(lambda: moe_dispatch_matmul_plain(
-                    gids, a, wt, block_t=16), iters=iters, warmup=1)
-                row = dict(ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound,
-                           bound_by=by, library_ms=lib_ms, max_abs_err=err,
-                           shape=tag, product=name, T=t, work=work)
-                record.setdefault("moe_dispatch_matmul_runs", []).append(row)
-                if tag == "paged prefill chunk" and name == "gate":
-                    record["moe_dispatch_matmul"] = row
-                log(f"[moe_dispatch_matmul] bf16 {tag} {name} T={t} "
-                    f"K={a.shape[1]} N={wt.shape[2]}: kernel {k_ms:.4f} ms, "
-                    f"plain {row['plain_ms']:.4f} ms, bound {bound:.5f} ms "
-                    f"({by}: {work}), library torch.matmul over "
-                    f"[E, B*cap, K] x [E, K, N] {lib_ms:.4f} ms")
-            del x, h, products, a, wt
-        del w
-        free_cuda()
+    rows = dispatch_rows(gen, plain=True)
+    record["moe_dispatch_matmul_runs"] = rows
+    record["moe_dispatch_matmul"] = next(
+        r for r in rows if r["shape"] == "paged prefill chunk"
+        and r["product"] == "gate")
+    bad = [f"bfloat16 {r['shape']} {r['product']}" for r in rows
+           if not r["ok"]]
+    # the float32 route (CUDA cores) at the paged chunk: checked, not timed
+    w = packed_experts(gen, torch.float32, cfg)
+    tag, rpe = dispatch_shapes(cfg)[0]
+    t = e * rpe
+    gids = torch.arange(e, dtype=torch.int32, device="cuda")
+    gids = gids.repeat_interleave(rpe // 16)
+    x = torch.randn((t, d), generator=gen, device="cuda")
+    h = torch.randn((t, f), generator=gen, device="cuda")
+    for name, a, wt in (("gate", x, w["we_gate"]), ("up", x, w["we_up"]),
+                        ("down", h, w["we_down"])):
+        got = moe_dispatch_matmul(gids, a, wt, block_t=16)
+        torch.cuda.synchronize()
+        want = moe_dispatch_matmul_plain(gids, a, wt, block_t=16)
+        err, ok = close_enough(got, want, 1e-4)
+        log(f"[moe_dispatch_matmul] float32 {tag} {name}: T={t} "
+            f"K={a.shape[1]} N={wt.shape[2]} w strides {tuple(wt.stride())}:"
+            f" max |err| {err:.3e} (tolerance 0.0001 abs + 0.0001 rel) "
+            f"{'ok' if ok else 'FAIL'}")
+        record.setdefault("dispatch_checks", []).append(
+            {"dtype": "float32", "shape": tag, "product": name,
+             "max_abs_err": err, "tol": 1e-4, "ok": ok})
+        if not ok:
+            bad.append(f"float32 {tag} {name}")
+    del w, x, h, got, want, a, wt
+    free_cuda()
     # flash_prefill at the single-batch MoE path's prefill
     bad += [f"flash_prefill {r['shape']}" for r in flash_rows(
         gen, ("qwen3-moe single-batch prefill",)) if not r["ok"]]
@@ -2008,7 +2105,7 @@ def phase_msb_serve(state: dict) -> None:
     decode_s, profiled = [], None
     for i in range(MSB_GEN - 1):
         if i == 4:
-            profiled = profile_step(eng)
+            profiled = profile_step(eng, ("grouped_",))
             toks.append(eng._last)
             continue
         t0 = time.perf_counter()
@@ -2044,6 +2141,10 @@ def phase_msb_serve(state: dict) -> None:
     log(f"[msb serve] NSB hit rate {st.hot_hit_rate}; peak device memory "
         f"{peak:.2f} GiB (set-up included)")
     log_profile("msb serve", profiled)
+    if profiled and profiled["busy_share"] is not None:
+        log(f"[msb serve] profiled decode step: grouped GEMM "
+            f"{profiled['counted_ms']['grouped_']:.2f} ms of device time "
+            f"({profiled['counted_n']['grouped_']} launches)")
     record["msb_serve"] = {
         "layers": L, "batch": MSB_BATCH, "prompt": MSB_PROMPT,
         "gen": MSB_GEN, "init_s": init_s, "prefill_s": prefill_s,
@@ -2266,12 +2367,29 @@ def flash_rows_only(src: Path) -> int:
     return 1 if failures or not all(r["ok"] for r in rows) else 0
 
 
+def dispatch_rows_only(src: Path) -> int:
+    """``--dispatch-rows``: the card, then the grouped GEMM's nine rows
+    (``dispatch_rows``, no plain timing) of the port under ``src``, as
+    one JSON line."""
+    import torch
+    run_phase("1 card", phase_card)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows: list = []
+    run_phase("moe_dispatch_matmul rows", lambda: rows.extend(
+        dispatch_rows(gen, plain=False)))
+    print(json.dumps({"src": str(src), "card": record.get("card"),
+                      "moe_dispatch_rows": rows}, default=str))
+    return 1 if failures or not all(r["ok"] for r in rows) else 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run with ``argv`` (no arguments when None)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--flash-rows", action="store_true",
                     help="time only the flash_prefill rows")
+    ap.add_argument("--dispatch-rows", action="store_true",
+                    help="time only the moe_dispatch_matmul rows")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="checkout whose src/ holds the port")
     args = ap.parse_args(argv or [])
@@ -2294,6 +2412,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.flash_rows:
         return flash_rows_only(src)
+    if args.dispatch_rows:
+        return dispatch_rows_only(src)
     t0 = time.perf_counter()
     state: dict = {}
     run_phase("1 card", phase_card)

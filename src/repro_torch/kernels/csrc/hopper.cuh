@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels: mbarriers, TMA tile loads, wgmma descriptors and products,
-// and the host-side tensor-map encoder.
+// kernels (flash_prefill, the grouped GEMM of moe_dispatch): mbarriers,
+// TMA tile loads, wgmma descriptors and products, and the host-side
+// tensor-map encoder.
 //
 // Layouts assumed throughout (what TMA writes and wgmma reads):
 // * A tile in shared memory is stored as column panels.  A panel is the
@@ -15,7 +16,8 @@
 //   stride byte offset); a k16 step advances the start address by 32
 //   bytes inside the row, and by a panel past its end.
 // * MN-major operand (the output axis contiguous: V rows [keys, D] as the
-//   B operand of P V, transpose bit set): groups of 8 keys are
+//   B operand of P V, or expert weights [K, N] with N contiguous;
+//   transpose bit set): groups of 8 rows of the reduction axis are
 //   `8 * row_bytes` apart (stride byte offset) and the next panel of
 //   output columns is one panel further (leading byte offset); a k16 step
 //   advances the start address by 16 rows.
@@ -120,6 +122,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for rank-2 and rank-3 maps.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
@@ -153,27 +177,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, float32 accumulate; A and
-// B K-major in shared memory.  scale_d = 0 overwrites d.
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
-                         int scale_d);
-
-// The same with A from registers (four bf16x2 per thread) and B
-// MN-major in shared memory (transpose bit set).
-template <int N>
-__device__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
-                            uint64_t desc_b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a,
-                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
+// d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, float32 accumulate; A
+// K-major in shared memory, B K-major (kTnspB 0) or MN-major (kTnspB 1,
+// the transpose bit) in shared memory.  scale_d = 0 overwrites d.
+template <int N, int kTnspB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N");
+  if constexpr (N == 64) {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -181,20 +198,16 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a,
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a,
-                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspB));
+  } else if constexpr (N == 128) {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -208,8 +221,56 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a,
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspB));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspB));
+  }
 }
+
+// The same with A from registers (four bf16x2 per thread) and B
+// MN-major in shared memory (transpose bit set).
+template <int N>
+__device__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                            uint64_t desc_b, int scale_d);
 
 template <>
 __device__ __forceinline__ void wgmma_rs_mn<32>(float (&d)[16],
@@ -356,31 +417,46 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A rank-4 map over a contiguous tensor of `dims` (innermost first) of
-// `elem_bytes`-byte elements, read in boxes of `box`; `swizzle` 0, 64 or
-// 128 bytes.  Returns false if the encoding is refused.
-inline bool encode_map_4d(CUtensorMap* map, const void* base,
-                          CUtensorMapDataType type, int elem_bytes,
-                          const uint64_t (&dims)[4], const uint32_t (&box)[4],
-                          int swizzle) {
+// A map of rank `rank` (at most 5) over a tensor of `dims` elements
+// (innermost first) of `elem_bytes` bytes each, dimension 0 contiguous
+// and dimension i > 0 `strides[i - 1]` bytes apart, read in boxes of
+// `box`; `swizzle` 0, 64 or 128 bytes.  TMA needs a 16-byte aligned
+// base and strides that are multiples of 16 bytes.  Returns false if the
+// encoding is refused.
+inline bool encode_map(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType type, int rank,
+                       const uint64_t* dims, const uint64_t* strides,
+                       const uint32_t* box, int swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
-  cuuint64_t gdim[4], gstride[3];
-  cuuint32_t bdim[4], estride[4] = {1, 1, 1, 1};
-  uint64_t stride = elem_bytes;
-  for (int i = 0; i < 4; ++i) {
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t bdim[5], estride[5] = {1, 1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
-    stride *= dims[i];
-    if (i < 3) gstride[i] = stride;
+    if (i > 0) gstride[i - 1] = strides[i - 1];
   }
   const CUtensorMapSwizzle sw = swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
-  return fn(map, type, 4, const_cast<void*>(base), gdim, gstride, bdim,
+  return fn(map, type, rank, const_cast<void*>(base), gdim, gstride, bdim,
             estride, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A rank-4 map over a contiguous tensor of `dims` (innermost first).
+inline bool encode_map_4d(CUtensorMap* map, const void* base,
+                          CUtensorMapDataType type, int elem_bytes,
+                          const uint64_t (&dims)[4], const uint32_t (&box)[4],
+                          int swizzle) {
+  uint64_t strides[3];
+  uint64_t stride = elem_bytes;
+  for (int i = 0; i < 3; ++i) {
+    stride *= dims[i];
+    strides[i] = stride;
+  }
+  return encode_map(map, base, type, 4, dims, strides, box, swizzle);
 }
 
 }  // namespace hopper

@@ -5,7 +5,9 @@
   kernel ``src/repro/kernels/moe_dispatch.py`` ``moe_dispatch_matmul``
   (``_moe_kernel``).  Its plain version copies the reference's oracle
   ``kernels/ref.py::moe_dispatch_matmul_ref`` (float32 contraction, cast
-  to x's dtype), one expert at a time.
+  to x's dtype), one expert at a time.  Its bfloat16 route cuts the runs
+  of equal group id into tiles of one expert each on the card;
+  :func:`dispatch_tiles_plain` is that list's contract.
 * :func:`moe_paged_gateup` and :func:`moe_paged_down`, the paged
   expert-tile GEMVs of the MoE decode step, replace ``moe_paged_gateup``
   (``_gateup_kernel``) and ``moe_paged_down`` (``_down_kernel``).  Their
@@ -31,8 +33,14 @@ from ._build import Q_CODES
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"moe_paged_gateup": [_P] * 4 + [_I] * 7 + [_P],
                "moe_paged_down": [_P] * 4 + [_I] * 7 + [_P],
-               "moe_dispatch_matmul": [_P] * 4 + [_I] * 5 + [_L] * 3
-               + [_I] * 2 + [_P]}
+               "moe_dispatch_matmul": [_P] * 6 + [_I] * 5 + [_L] * 3
+               + [_I] * 2 + [_P],
+               "moe_dispatch_tiles": [_P, _I, _I, _I, _P, _P, _P],
+               "moe_dispatch_smem": []}
+
+# rows of a bfloat16 tile of the grouped GEMM (two consumer warpgroups of
+# 64; kBM in csrc/moe_dispatch.cu); a tile is 256 columns wide
+TILE_ROWS = 128
 
 
 def _gather(pids: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
@@ -144,9 +152,79 @@ def moe_dispatch_matmul_plain(group_ids: torch.Tensor, x: torch.Tensor,
     return out.reshape(t, f).to(x.dtype)
 
 
+def dispatch_tiles_plain(group_ids: torch.Tensor, block_t: int,
+                         bm: int) -> torch.Tensor:
+    """The tile list of the bfloat16 grouped GEMM: the runs of equal
+    group id (``block_t`` rows each id), in row order, each cut into
+    tiles of at most ``bm`` rows (the GEMM's are ``TILE_ROWS``) from its
+    first row.  Returns int32
+    [n, 3] rows ``(row0, row_end, expert)``; an unknown expert's tile is
+    listed too (the kernel stores its rows as zeros)."""
+    g = group_ids.long()
+    nb, dev = g.numel(), g.device
+    if nb == 0:
+        return torch.zeros((0, 3), dtype=torch.int32, device=dev)
+    new_run = torch.ones(nb, dtype=torch.bool, device=dev)
+    new_run[1:] = g[1:] != g[:-1]
+    first = torch.nonzero(new_run).squeeze(1)
+    last = torch.cat([first[1:], first.new_tensor([nb])]) - 1
+    row0, row1 = first * block_t, (last + 1) * block_t
+    n = (row1 - row0 + bm - 1) // bm
+    run = torch.repeat_interleave(torch.arange(first.numel(), device=dev), n)
+    k = torch.arange(run.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    start = row0[run] + k * bm
+    end = torch.minimum(start + bm, row1[run])
+    return torch.stack([start, end, g[first][run]], 1).to(torch.int32)
+
+
+def max_tiles(nb: int, block_t: int, bm: int) -> int:
+    """The most tiles ``nb`` group ids can make (a block of ``block_t``
+    rows starts at most ``block_t // bm + 1`` tiles)."""
+    return nb * (block_t // bm + 1)
+
+
+def _tile_list(group_ids: torch.Tensor, block_t: int,
+               bm: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scratch for the kernel's tile list: int32 [max_tiles, 4] and the
+    count [1], one allocation (the count first, so the tiles are 16-byte
+    aligned)."""
+    n = max_tiles(group_ids.numel(), block_t, bm)
+    buf = torch.empty(((n + 1) * 4,), dtype=torch.int32,
+                      device=group_ids.device)
+    return buf[4:].view(n, 4), buf[:1]
+
+
+def dispatch_tiles(group_ids: torch.Tensor, block_t: int,
+                   bm: int) -> torch.Tensor:
+    """:func:`dispatch_tiles_plain` for ids on the CPU; on a card, the
+    list the kernel's prologue builds, as [n, 3] on the card.  Reading
+    its length waits for the card: the GEMM's wrapper never calls this,
+    and builds the list on the card without a wait."""
+    if not group_ids.is_cuda:
+        return dispatch_tiles_plain(group_ids, block_t, bm)
+    if group_ids.dtype != torch.int32 or not group_ids.is_contiguous():
+        raise TypeError("dispatch_tiles: group_ids must be contiguous int32")
+    tiles, count = _tile_list(group_ids, block_t, bm)
+    lib = _build.load("moe_dispatch", _SIGNATURES)
+    code = lib.moe_dispatch_tiles(
+        _build.ptr(group_ids), group_ids.numel(), block_t, bm,
+        _build.ptr(tiles), _build.ptr(count),
+        _build.stream_ptr(group_ids.device))
+    _build.check(code, "moe_dispatch_tiles")
+    return tiles[:int(count.item()), :3]
+
+
+def gemm_smem_bytes() -> int:
+    """Dynamic shared memory of one bfloat16 block (builds the kernel;
+    needs the CUDA toolkit)."""
+    return _build.load("moe_dispatch", _SIGNATURES).moe_dispatch_smem()
+
+
 def _gemm_layout(w: torch.Tensor) -> int | None:
     """0 when w's K stride is 1, 1 when its N stride is 1, and None when
-    the bfloat16 kernel cannot read w in place (16-byte rows)."""
+    TMA cannot read w in place: it needs a 16-byte aligned base and the
+    other strides multiples of 16 bytes (8 bfloat16 values)."""
     se, sk, sn = w.stride()
     aligned = w.data_ptr() % 16 == 0 and se % 8 == 0
     if sk == 1 and aligned and sn % 8 == 0:
@@ -165,7 +243,8 @@ def moe_dispatch_matmul(group_ids: torch.Tensor, x: torch.Tensor,
     zero rows); x [T, D] contiguous (float32 or bfloat16); w [E, D, F]
     in x's dtype, read through its strides (a transposed view of
     ``[E, F, D]`` weights included).  Returns [T, F] in x's dtype with
-    float32 accumulation."""
+    float32 accumulation.  The group ids never leave the card: the
+    bfloat16 route builds its tile list there (:func:`dispatch_tiles`)."""
     if not x.is_cuda:
         return moe_dispatch_matmul_plain(group_ids, x, w, block_t=block_t)
     if x.dtype not in Q_CODES or w.dtype != x.dtype:
@@ -190,17 +269,23 @@ def moe_dispatch_matmul(group_ids: torch.Tensor, x: torch.Tensor,
         raise ValueError("moe_dispatch_matmul needs contiguous x and "
                          "group_ids")
     layout = 0
+    tiles = count = None
     if x.dtype == torch.bfloat16:
         layout = _gemm_layout(w)
         if layout is None or d % 8 or x.data_ptr() % 16:
             raise ValueError(
-                f"moe_dispatch_matmul (bfloat16) reads w in 16-byte rows "
-                f"along D or F: w {tuple(w.shape)} with strides "
-                f"{w.stride()} and D = {d} do not allow it")
+                f"moe_dispatch_matmul (bfloat16) reads x and w by TMA, "
+                f"which needs 16-byte aligned bases and strides that are "
+                f"multiples of 16 bytes: w {tuple(w.shape)} with strides "
+                f"{w.stride()} (one of them must be 1) and D = {d} do "
+                f"not allow it")
+        tiles, count = _tile_list(group_ids, block_t, TILE_ROWS)
     out = torch.empty((t, f), dtype=x.dtype, device=x.device)
     lib = _build.load("moe_dispatch", _SIGNATURES)
     code = lib.moe_dispatch_matmul(
         _build.ptr(group_ids), _build.ptr(x), _build.ptr(w), _build.ptr(out),
+        None if tiles is None else _build.ptr(tiles),
+        None if count is None else _build.ptr(count),
         t, d, f, e, block_t, *w.stride(), Q_CODES[x.dtype], layout,
         _build.stream_ptr(x.device))
     _build.check(code, "moe_dispatch_matmul")

@@ -19,7 +19,9 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.gather_rows import gather_rows, gather_rows_plain
 from repro_torch.kernels.gather_spmm import gather_spmm, gather_spmm_plain
-from repro_torch.kernels.moe_dispatch import (moe_dispatch_matmul,
+from repro_torch.kernels.moe_dispatch import (dispatch_tiles,
+                                              dispatch_tiles_plain,
+                                              moe_dispatch_matmul,
                                               moe_dispatch_matmul_plain,
                                               moe_paged_down,
                                               moe_paged_down_plain,
@@ -372,27 +374,40 @@ def _expert_weights(dev, dtype, layout, e, k, n, gen):
     return draw((e, k, n))
 
 
+def _group_ids(dev, order, t, e, bt, gen):
+    """One id per ``bt`` rows: ``"random"``, ``"sorted"`` (random ids in
+    order) or ``"runs"`` (each expert one run of equal length, as the
+    capacity dispatch lays them out)."""
+    nb = t // bt
+    if order == "runs":
+        return (torch.arange(nb, device=dev) * e // nb).to(torch.int32)
+    gids = torch.randint(0, e, (nb,), generator=gen, device=dev)
+    if order == "sorted":
+        gids = torch.sort(gids).values
+    return gids.to(torch.int32)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["gate", "down", "dense"])
-@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("order", ["random", "sorted", "runs"])
 @pytest.mark.parametrize("t,d,e,f,bt", [
     (256, 128, 4, 256, 64), (128, 256, 8, 128, 32), (512, 64, 2, 512, 128),
-    (96, 40, 5, 24, 16), (4096, 512, 128, 192, 16)])
+    (96, 40, 5, 24, 16), (4096, 512, 128, 192, 16),
+    (512, 200, 16, 136, 16), (768, 200, 8, 136, 16),
+    (3072, 200, 4, 136, 16)])
 def test_moe_dispatch_matmul_kernel_matches_plain(dev, dtype, layout, order,
                                                   t, d, e, f, bt):
-    """Random and sorted group ids, tiles that span several experts
-    (block_t 16 under 64-row tiles), ragged K and N tails (D=40, F=24),
-    and the three weight layouts, read in place."""
+    """Random and sorted group ids, block_t 16-128, ragged K and N tails
+    (D=40 and 200, not multiples of the 64 of K a stage, read through
+    TMA's zero fill; F=24 and 136), the three weight layouts read in
+    place, and ``"runs"``: 32, 96 and 768 rows an expert (the paths'
+    shapes at a reduced K and N), so a 128-row tile's rows past its run
+    are never stored over the next expert's (at 32 rows its second
+    warpgroup has none of the run's rows)."""
     gen = torch.Generator(device=dev).manual_seed(t + d + f)
     x = torch.randn((t, d), generator=gen, device=dev).to(_DT[dtype])
     w = _expert_weights(dev, _DT[dtype], layout, e, d, f, gen)
-    nb = t // bt
-    if order == "sorted":
-        gids = torch.sort(torch.randint(0, e, (nb,), generator=gen,
-                                        device=dev)).values
-    else:
-        gids = torch.randint(0, e, (nb,), generator=gen, device=dev)
-    gids = gids.to(torch.int32)
+    gids = _group_ids(dev, order, t, e, bt, gen)
     n = moe_dispatch_matmul.launches
     got = moe_dispatch_matmul(gids, x, w, block_t=bt)
     torch.cuda.synchronize()
@@ -403,16 +418,97 @@ def test_moe_dispatch_matmul_kernel_matches_plain(dev, dtype, layout, order,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_moe_dispatch_matmul_unknown_group_ids_give_zero_rows(dev):
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((64, 32), generator=gen, device=dev).bfloat16()
-    w = torch.randn((3, 32, 16), generator=gen, device=dev).bfloat16()
-    gids = torch.tensor([0, -1, 3, 2], dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("layout", ["gate", "down", "dense"])
+@pytest.mark.parametrize("t,e", [(512, 16), (3072, 4)])
+def test_moe_dispatch_matmul_is_bitwise_repeatable(dev, layout, t, e):
+    """Each output element is written once, by one block, in a fixed K
+    order: two launches agree bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((t, 200), generator=gen, device=dev).bfloat16()
+    w = _expert_weights(dev, torch.bfloat16, layout, e, 200, 136, gen)
+    gids = _group_ids(dev, "random", t, e, 16, gen)
+    a = moe_dispatch_matmul(gids, x, w, block_t=16)
+    b = moe_dispatch_matmul(gids, x, w, block_t=16)
+    assert torch.equal(a, b)
+
+
+def test_moe_dispatch_matmul_ragged_columns_not_a_multiple_of_8(dev):
+    """K-major weights take any F: the last columns are stored one by
+    one."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((256, 64), generator=gen, device=dev).bfloat16()
+    w = _expert_weights(dev, torch.bfloat16, "gate", 4, 64, 20, gen)
+    gids = _group_ids(dev, "runs", 256, 4, 16, gen)
     got = moe_dispatch_matmul(gids, x, w, block_t=16)
     want = moe_dispatch_matmul_plain(gids, x, w, block_t=16)
-    assert not got[16:48].any() and not want[16:48].any()
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("order", ["sorted", "random", "unknown"])
+@pytest.mark.parametrize("nb,bt,bm", [(256, 16, 64), (1024, 16, 128),
+                                      (6144, 16, 128), (20000, 16, 128),
+                                      (300, 32, 64), (77, 128, 64),
+                                      (90, 64, 128)])
+def test_dispatch_tiles_on_the_card_match_the_contract(dev, order, nb, bt,
+                                                       bm):
+    """The prologue's tile list, built on the card, equals
+    ``dispatch_tiles_plain``: sorted, random and unknown ids, one round
+    of the scan and several (20000 ids), runs shorter and longer than a
+    tile, tiles that start inside a block (block_t 128, 64-row tiles)."""
+    gen = torch.Generator(device=dev).manual_seed(nb + bt)
+    e = 12
+    gids = torch.randint(0, e, (nb,), generator=gen, device=dev)
+    if order != "random":
+        gids = torch.sort(gids).values
+    if order == "unknown":
+        gids[torch.randint(0, nb, (nb // 5,), generator=gen,
+                           device=dev)] = -3
+        gids[-1] = e
+    gids = gids.to(torch.int32)
+    got = dispatch_tiles(gids, bt, bm)
+    want = dispatch_tiles_plain(gids.cpu(), bt, bm)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("t,e", [(64, 3), (1024, 4)])
+def test_moe_dispatch_matmul_unknown_group_ids_give_zero_rows(dev, t, e):
+    """Ids outside [0, E) give rows of exact zeros, even where x holds
+    NaN (their tiles load and multiply nothing)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((t, 32), generator=gen, device=dev).bfloat16()
+    w = torch.randn((e, 32, 16), generator=gen, device=dev).bfloat16()
+    nb = t // 16
+    gids = torch.arange(nb, device=dev, dtype=torch.int32) % (e + 2) - 1
+    unknown = (gids < 0) | (gids >= e)
+    x.view(nb, 16, 32)[unknown] = float("nan")
+    got = moe_dispatch_matmul(gids, x, w, block_t=16)
+    want = moe_dispatch_matmul_plain(gids, x, w, block_t=16)
+    rows = unknown.repeat_interleave(16)
+    assert rows.any() and (got[rows] == 0).all() and not want[rows].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_dispatch_matmul_adds_no_host_sync(dev, dtype):
+    """The wrapper never reads the group ids on the host: it runs under
+    ``set_sync_debug_mode("error")``, which raises on a synchronising
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((512, 256), generator=gen, device=dev).to(_DT[dtype])
+    w = _expert_weights(dev, _DT[dtype], "gate", 8, 256, 128, gen)
+    gids = _group_ids(dev, "random", 512, 8, 16, gen)
+    moe_dispatch_matmul(gids, x, w, block_t=16)   # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe_dispatch_matmul(gids, x, w, block_t=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = moe_dispatch_matmul_plain(gids, x, w, block_t=16)
+    tol = _tol(x.dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_moe_dispatch_matmul_rejects_what_it_does_not_take(dev):

@@ -96,6 +96,80 @@ def test_plain_gives_each_block_its_expert_and_zeros_for_unknown_ids():
     assert seen == [2, 0]
 
 
+# -- the bfloat16 kernel's tile list -------------------------------------------
+
+def _tiles_by_loop(gids, bt, bm):
+    """Each run of equal ids, start to end, cut into bm-row pieces."""
+    out, i = [], 0
+    while i < len(gids):
+        j = i
+        while j + 1 < len(gids) and gids[j + 1] == gids[i]:
+            j += 1
+        r1 = (j + 1) * bt
+        out += [(a, min(a + bm, r1), gids[i]) for a in range(i * bt, r1, bm)]
+        i = j + 1
+    return out
+
+
+def _ids(order, nb, rng):
+    if order == "random":
+        return rng.integers(0, 6, nb)
+    if order == "unknown":          # sorted, with ids outside [0, E)
+        return np.sort(rng.integers(-2, 9, nb))
+    # sorted runs of 1 to 20 blocks: shorter than, equal to and longer
+    # than a tile for every (block_t, bm)
+    return np.repeat(np.arange(nb), rng.integers(1, 21, nb))[:nb]
+
+
+@pytest.mark.parametrize("order", ["sorted", "random", "unknown"])
+@pytest.mark.parametrize("bt,bm", [(16, 64), (16, 128), (32, 64), (64, 64),
+                                   (128, 64), (128, 128)])
+@pytest.mark.parametrize("nb", [1, 7, 61])
+def test_dispatch_tiles_plain_matches_a_loop(order, bt, bm, nb):
+    """The contract of the card's tile list against a straightforward
+    loop; every row is in exactly one tile of one expert, no tile is
+    longer than bm, and the list fits the kernel's scratch.  T = nb *
+    block_t is mostly not a multiple of bm."""
+    rng = np.random.default_rng(nb * 1000 + bt + bm)
+    g = _ids(order, nb, rng).astype(np.int32)
+    got = moe_dispatch.dispatch_tiles_plain(torch.from_numpy(g), bt, bm)
+    assert got.dtype == torch.int32 and got.shape[1] == 3
+    want = _tiles_by_loop(g.tolist(), bt, bm)
+    assert [tuple(r) for r in got.tolist()] == want
+    rows = np.zeros(nb * bt, np.int64)
+    for r0, r1, e in got.tolist():
+        assert 0 < r1 - r0 <= bm
+        assert (g[r0 // bt:(r1 - 1) // bt + 1] == e).all()
+        rows[r0:r1] += 1
+    assert (rows == 1).all()
+    assert len(want) <= moe_dispatch.max_tiles(nb, bt, bm)
+    # the wrapper takes the plain list for ids on the CPU
+    assert torch.equal(moe_dispatch.dispatch_tiles(torch.from_numpy(g), bt,
+                                                   bm), got)
+
+
+@pytest.mark.parametrize("rpe", [32, 128, 768, 96])
+def test_dispatch_tiles_of_the_capacity_dispatch(rpe):
+    """The paths' layout (each expert one run of ``rpe`` rows) gives
+    ceil(rpe / bm) tiles of the GEMM's ``TILE_ROWS`` an expert: one at
+    the chunk's 32 rows and the decode's 128, so no expert's weights are
+    streamed twice there."""
+    e, bm = 128, moe_dispatch.TILE_ROWS
+    g = torch.arange(e, dtype=torch.int32).repeat_interleave(rpe // 16)
+    tiles = moe_dispatch.dispatch_tiles_plain(g, 16, bm)
+    per = -(-rpe // bm)
+    assert tiles.shape[0] == e * per
+    torch.testing.assert_close(tiles[::per, 2], torch.arange(
+        e, dtype=torch.int32))
+    assert (tiles[:, 1] - tiles[:, 0]).max() <= bm
+
+
+def test_dispatch_tiles_plain_of_no_ids():
+    got = moe_dispatch.dispatch_tiles_plain(
+        torch.zeros(0, dtype=torch.int32), 16, 64)
+    assert got.shape == (0, 3)
+
+
 # -- moe_ffn through the kernel route ------------------------------------------
 
 @pytest.fixture(scope="module")
