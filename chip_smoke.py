@@ -12,17 +12,21 @@ final result line):
 2. every CUDA kernel built from ``src/repro_torch/kernels/csrc`` with
    ``nvcc -Xptxas -v`` (registers, shared memory, spills printed; for
    each tensor-core ``flash_prefill`` and grouped-GEMM instantiation one
-   line with its dynamic shared memory too; a grouped-GEMM instantiation
-   that spills fails the phase);
+   line with its dynamic shared memory too, and one line for each
+   instantiation of the decode-attention body ``decode_split_kernel``
+   and its merge; a grouped-GEMM instantiation that spills fails the
+   phase);
 3. each kernel against its plain PyTorch version at the serve path's
    shapes, with times (CUDA events), the plain version's time, the
    bound (bytes or operations at the card's peak rates) and one
-   PyTorch library call timed as a yardstick;
+   PyTorch library call timed as a yardstick; ``paged_decode_attn`` also
+   at gemma-7b's head_dim 256, and bitwise on a repeated call and row by
+   row (a row alone equals its row in the batch);
 4. the port's main path: ``PagedEngine`` serving 8 requests of about
    1500 prompt tokens on qwen2-1.5b at full width in bfloat16 (seeded
    random weights), with the kernels' launch counts, decode and prefill
    rates, the NSB hit rate and the device busy share of one profiled
-   decode step;
+   decode step, with the decode-attention kernels' share of it;
 5. teacher-forced per-layer check: every layer's decode attention
    inputs of one step go to the kernel and to the plain version;
 6. full width in float32, first decode step, ``kernel="cuda"`` against
@@ -31,7 +35,8 @@ final result line):
 8. the MoE kernels against their plain versions at qwen3-moe-235b-a22b's
    decode shapes in bfloat16 and float32, timed beside their bound, the
    plain versions and a ``torch.bmm`` over weights gathered beforehand;
-   the attention kernels again at qwen3-moe's head shapes;
+   the attention kernels again at qwen3-moe's head shapes (decode in
+   bfloat16, int8 and float32, bitwise on repeat and row by row);
 9. the MoE path: ``PagedEngine(expert_pool="paged")`` serving the same
    8 requests on qwen3-moe-235b-a22b at full width, cut to 8 layers,
    in bfloat16 — all four kernels' launches, decode and prefill rates,
@@ -55,7 +60,8 @@ final result line):
     CPU), and ``flash_prefill`` at the path's batched prefill (B=8,
     S=1536) and dense decode step (one query row at the prompt's end),
     timed beside their bound, the plain versions and a PyTorch
-    yardstick;
+    yardstick; ``sparse_decode_attn`` bitwise on a repeated call and row
+    by row;
 14. the single-batch ``Engine`` on qwen2-1.5b at full width in bfloat16:
     a batch of 8 prompts of 1536 tokens prefilled together, 32 tokens
     decoded in lockstep with TopK sparse attention, then a few dense
@@ -110,7 +116,8 @@ checkout's), and prints them as one JSON line: two checkouts timed in
 one process each, on one card, compare the kernel's versions.
 ``--dispatch-rows [--src DIR]`` does the same for the grouped GEMM
 ``moe_dispatch_matmul`` at its nine rows (three path shapes x gate, up,
-down).
+down), and ``--decode-rows [--src DIR]`` for ``paged_decode_attn`` and
+``sparse_decode_attn`` at the five rows of ``decode_shapes``.
 """
 
 from __future__ import annotations
@@ -152,6 +159,12 @@ SPMM_TPU = "src/repro/kernels/gather_spmm.py:52"
 # first port's flash_prefill_kernel
 FLASH_KERNELS = ("flash_wgmma_kernel", "flash_merge_kernel",
                  "flash_simt_kernel", "flash_prefill_kernel")
+
+# the device kernels of the two decode-attention kernels (the split-page
+# body and its merge pass) and, for --src of an older checkout, the first
+# port's paged_decode_kernel and sparse_decode_kernel
+DECODE_KERNELS = ("decode_split_kernel", "decode_merge_kernel",
+                  "paged_decode_kernel", "sparse_decode_kernel")
 
 # the single-batch path: 8 prompts of 1536 tokens, 32 generated, TopK 64
 # of 98 pages of 16
@@ -208,6 +221,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, replays: int = 20) -> float:
+    """Device time of ``fn()`` without the host's launch path: ``fn`` is
+    captured once in a CUDA graph, then the graph is replayed between two
+    CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / replays
+
+
 def dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
@@ -236,6 +274,7 @@ def phase_build() -> None:
     record["ptxas"] = reports
     flash_ptxas()
     dispatch_ptxas()
+    decode_ptxas()
 
 
 def flash_ptxas() -> None:
@@ -302,6 +341,49 @@ def dispatch_ptxas() -> None:
     assert len(rows) == 2, "not every grouped_wgmma_kernel reported"
     spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
     assert not spilled, f"grouped_wgmma_kernel spills: {spilled}"
+
+
+def decode_ptxas() -> None:
+    """One line per instantiation of the decode-attention body
+    (``decode_split_kernel``, q dtype x K/V dtype x D, in each of its two
+    libraries) and of its merge pass: registers and spills from
+    ``-Xptxas -v``.  The aim, not a gate: no bf16 instantiation spills."""
+    import re
+
+    from repro_torch.kernels import _build
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+    rows = []
+    for lib in ("paged_decode_attn", "sparse_decode_attn"):
+        for block in _build.ptxas_reports[lib].split(
+                "Compiling entry function")[1:]:
+            # a second bfloat16 in a mangled name is a substitution, S<n>_
+            kern = re.search(r"decode_(split|merge)_kernelI(f|13__nv_bfloat16)"
+                             r"(?:(f|13__nv_bfloat16|a|S\d*_)Li(\d+)E)?",
+                             block)
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            if not (kern and regs and spill):
+                continue
+            row = {"library": lib, "kernel": f"decode_{kern[1]}_kernel",
+                   "q": types[kern[2]],
+                   "kv": types.get(kern[3], "bf16") if kern[3] else None,
+                   "D": int(kern[4]) if kern[4] else None,
+                   "registers": int(regs[1]), "spill_stores": int(spill[1]),
+                   "spill_loads": int(spill[2])}
+            rows.append(row)
+            what = (f"q {row['q']} K/V {row['kv']} D={row['D']}"
+                    if row["kv"] else f"out {row['q']}")
+            log(f"[ptxas] {lib}: {row['kernel']} {what}: {regs[1]} "
+                f"registers, {spill[1]} bytes spill stores, {spill[2]} "
+                f"bytes spill loads")
+    record["decode_ptxas"] = rows
+    n_split = sum(r["kernel"] == "decode_split_kernel" for r in rows)
+    assert n_split == 48, f"{n_split} of 48 decode_split_kernel reported"
+    bf16 = [r for r in rows if r["kv"] == "bf16"
+            and (r["spill_stores"] or r["spill_loads"])]
+    log(f"[ptxas] bf16 K/V instantiations of decode_split_kernel that "
+        f"spill: {len(bf16)} (aim: none)")
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -494,33 +576,35 @@ def phase_kernels() -> None:
              "ok": ok})
         if not ok:
             bad.append(f"paged_decode_attn {dtype_name(pool_dt)}")
+        log_bitwise("paged_decode_attn", f"pool {dtype_name(pool_dt)}",
+                    *bitwise_checks(paged_call(c), N_REQ), bad)
+    # gemma-7b's heads: 16 KV heads, G=1, head_dim 256
+    for pool_dt in (torch.bfloat16, torch.int8):
+        c = decode_case(gen, pool_dt, torch.bfloat16, KV=16, G=1, D=256)
+        got = paged_decode_attn(c["phys"], c["idx"], c["pos"], c["q"],
+                                c["kp"][0], c["vp"][0], page_size=c["page"])
+        torch.cuda.synchronize()
+        err, ok = close_enough(got, attend_pages_paged(
+            c["q"], c["kp"][0], c["vp"][0], c["idx"], c["phys"], c["pos"],
+            c["page"]), 1e-2)
+        log(f"[paged_decode_attn] gemma-7b heads KV=16 G=1 D=256 pool "
+            f"{dtype_name(pool_dt)}: max |err| {err:.3e} (tolerance 0.01 "
+            f"abs + 0.01 rel) {'ok' if ok else 'FAIL'}")
+        record.setdefault("decode_checks", []).append(
+            {"pool": dtype_name(pool_dt), "heads": "gemma-7b",
+             "max_abs_err": err, "tol": 1e-2, "ok": ok})
+        if not ok:
+            bad.append(f"paged_decode_attn D=256 {dtype_name(pool_dt)}")
+        log_bitwise("paged_decode_attn", f"D=256 pool {dtype_name(pool_dt)}",
+                    *bitwise_checks(paged_call(c), N_REQ), bad)
+        del c, got
     # timing at the main path's bf16 pools, rotating over 8 layers of
-    # pool (~100 MB) so pages come from device memory, not L2
-    c = decode_case(gen, torch.bfloat16, torch.bfloat16, n_layers=8)
-    layers = itertools.cycle(range(8))
-
-    def kern():
-        li = next(layers)
-        paged_decode_attn(c["phys"], c["idx"], c["pos"], c["q"], c["kp"][li],
-                          c["vp"][li], page_size=c["page"])
-
-    def plain():
-        li = next(layers)
-        attend_pages_paged(c["q"], c["kp"][li], c["vp"][li], c["idx"],
-                           c["phys"], c["pos"], c["page"])
-    bound, by, work = decode_bound(c, torch.bfloat16)
-    plain_ms = cuda_ms(plain)
-    k_ms = cuda_ms(kern)
-    plain_ms2 = cuda_ms(plain)
+    # pool (~100 MB)
+    row = decode_rows(gen, ["paged qwen2-1.5b"])[0]
     record["paged_decode_attn"] = dict(
-        ms=k_ms, plain_ms=min(plain_ms, plain_ms2), bound_ms=bound,
-        bound_by=by, library_ms=None, work=work,
-        max_abs_err=record["decode_checks"][0]["max_abs_err"])
-    log(f"[paged_decode_attn] bf16 R=8 KV=2 G=6 D=128 page=16 K=64: "
-        f"kernel {k_ms:.4f} ms, plain {min(plain_ms, plain_ms2):.4f} ms, "
-        f"bound {bound:.5f} ms ({by}: {work}); library: none (no single "
-        "PyTorch call gathers TopK pages through a block table and "
-        "attends over them)")
+        row, max_abs_err=record["decode_checks"][0]["max_abs_err"])
+    if not row["ok"]:
+        bad.append("paged_decode_attn timed row")
 
     # flash prefill: B=1, Sq=chunk, Sk=max_len, H=12, KV=2, D=128
     sk = -(-(PROMPT + GEN) // 16) * 16
@@ -655,7 +739,7 @@ def drive_serve(eng, work, kernels: dict) -> dict:
         decode_only = (not sch.waiting and sch.running
                        and not any(r.in_prefill for r in sch.running))
         if decode_only and profiled is None and len(decode_s) >= 4:
-            profiled = profile_step(eng)
+            profiled = profile_step(eng, DECODE_KERNELS)
             continue
         n_it = eng.stats.iterations
         t0 = time.perf_counter()
@@ -682,6 +766,17 @@ def log_profile(tag: str, profiled) -> None:
             f"{profiled['n_kernels']} kernels; top by device time:")
         for t in profiled["top"]:
             log(f"[{tag}]   {t['ms']:.3f} ms  {t['name']}")
+        ms = {n: profiled["counted_ms"][n] for n in DECODE_KERNELS
+              if profiled["counted_n"].get(n)}
+        if ms:
+            n = sum(profiled["counted_n"][k] for k in ms)
+            share = sum(ms.values()) / profiled["device_ms"]
+            profiled["decode_attn"] = {"ms": sum(ms.values()),
+                                       "launches": n, "share": share}
+            log(f"[{tag}] decode attention kernels: "
+                + ", ".join(f"{k} {v:.3f} ms ({profiled['counted_n'][k]} "
+                            f"launches)" for k, v in ms.items())
+                + f" = {100 * share:.1f}% of the step's device time")
     else:
         log(f"[{tag}] device busy share: not measured (the profiler "
             "recorded no device events)")
@@ -1070,6 +1165,7 @@ def phase_moe_kernels() -> None:
 
     # the attention kernels again at qwen3-moe's head shapes
     for pool_dt, q_dt, tol in ((torch.bfloat16, torch.bfloat16, 1e-2),
+                               (torch.int8, torch.bfloat16, 1e-2),
                                (torch.float32, torch.float32, 1e-5)):
         c = decode_case(gen, pool_dt, q_dt, KV=4, G=16)
         args = (c["phys"], c["idx"], c["pos"], c["q"], c["kp"][0],
@@ -1087,28 +1183,13 @@ def phase_moe_kernels() -> None:
              "max_abs_err": err, "ok": ok})
         if not ok:
             bad.append(f"paged_decode_attn qwen3 {dtype_name(pool_dt)}")
-    c = decode_case(gen, torch.bfloat16, torch.bfloat16, n_layers=8, KV=4,
-                    G=16)
-    layers = itertools.cycle(range(8))
-
-    def kern():
-        li = next(layers)
-        paged_decode_attn(c["phys"], c["idx"], c["pos"], c["q"], c["kp"][li],
-                          c["vp"][li], page_size=c["page"])
-
-    def plain():
-        li = next(layers)
-        attend_pages_paged(c["q"], c["kp"][li], c["vp"][li], c["idx"],
-                           c["phys"], c["pos"], c["page"])
-    bound, by, work = decode_bound(c, torch.bfloat16)
-    p1, k_ms, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(plain)
-    record["paged_decode_attn_qwen3"] = dict(
-        ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
-        library_ms=None, work=work)
-    log(f"[paged_decode_attn] qwen3-moe bf16 R=8 KV=4 G=16 D=128 page=16 "
-        f"K=64: kernel {k_ms:.4f} ms, plain {min(p1, p2):.4f} ms, bound "
-        f"{bound:.5f} ms ({by}: {work})")
-    del c
+        log_bitwise("paged_decode_attn",
+                    f"qwen3-moe heads pool {dtype_name(pool_dt)}",
+                    *bitwise_checks(paged_call(c), N_REQ), bad)
+    row = decode_rows(gen, ["paged qwen3-moe"])[0]
+    record["paged_decode_attn_qwen3"] = row
+    if not row["ok"]:
+        bad.append("paged_decode_attn qwen3 timed row")
     sk = -(-(PROMPT + GEN) // 16) * 16
     off = sk - CHUNK
     for q_dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 2e-5)):
@@ -1466,21 +1547,205 @@ def sparse_bound(c) -> tuple[float, str, dict]:
         "pages": int(idx.numel())}
 
 
-def phase_sb_kernels() -> None:
+def decode_shapes() -> dict:
+    """(kernel, case keywords) of every decode-attention call the serve
+    paths make, bfloat16, page 16, K=64: ``paged_decode_attn`` at
+    qwen2-1.5b's and qwen3-moe's heads (``decode_case``), and
+    ``sparse_decode_attn`` at the single-batch shapes of both
+    (``sparse_case``) and at gemma-7b's heads (KV=16, G=1, D=256)."""
+    return {
+        "paged qwen2-1.5b": ("paged", {}),
+        "paged qwen3-moe": ("paged", dict(KV=4, G=16)),
+        "single-batch qwen2-1.5b": ("sparse", {}),
+        "single-batch qwen3-moe": ("sparse", dict(
+            KV=4, G=16, S=MSB_PROMPT + MSB_GEN, pos=MSB_PROMPT + 15)),
+        "gemma-7b heads": ("sparse", dict(KV=16, G=1, D=256))}
+
+
+def decode_rows(gen, tags) -> list:
+    """The two decode-attention kernels in bfloat16 at the named
+    ``decode_shapes``, over 8 layers of cache: the kernel against its
+    plain version on layer 0 (1e-2 abs + rel), then its time (CUDA
+    events rotating over the 8 layers, the replay of a CUDA graph of one
+    call a layer, the profiler's device time a call and the wrapper's
+    host time a call) beside the bound, the plain version's time and that of
+    ``scaled_dot_product_attention`` over the selected pages gathered
+    beforehand with the frontier as its mask (the gather not counted).
+    Returns one row each; a row that disagrees has ``ok`` False."""
     import torch
     import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+    from repro_torch.kernels.sparse_decode_attn import sparse_decode_attn
+    from repro_torch.models.sparse_attention import (attend_pages,
+                                                     attend_pages_paged,
+                                                     gather_pages,
+                                                     page_token_positions)
+    bf16 = torch.bfloat16
+    rows = []
+    for tag in tags:
+        kind, kw = decode_shapes()[tag]
+        if kind == "paged":
+            c = decode_case(gen, bf16, bf16, n_layers=8, **kw)
+            q, idx, pos, phys, page = (c["q"], c["idx"], c["pos"],
+                                       c["phys"], c["page"])
+
+            def kern(li, c=c):
+                return paged_decode_attn(c["phys"], c["idx"], c["pos"],
+                                         c["q"], c["kp"][li], c["vp"][li],
+                                         page_size=c["page"])
+
+            def plain(li, c=c):
+                return attend_pages_paged(c["q"], c["kp"][li], c["vp"][li],
+                                          c["idx"], c["phys"], c["pos"],
+                                          c["page"])
+            r, kv, g, d = q.shape
+            hi = torch.arange(kv, device="cuda")[None, :, None]
+            kgs, vgs = ([t[li].permute(0, 2, 1, 3)[phys.long(), hi].reshape(
+                r, kv, -1, d) for li in range(8)] for t in (c["kp"], c["vp"]))
+            tok = page_token_positions(idx, page)
+            mask = (tok <= pos.long()[:, None, None, None]).reshape(
+                r, kv, 1, -1)
+            bound, by, work = decode_bound(c, bf16)
+            shape = f"R={r} KV={kv} G={g} D={d} page={page} K={idx.shape[2]}"
+        else:
+            c = sparse_case(gen, bf16, bf16, n_layers=8, **kw)
+            q, idx, pos, page = c["q"], c["idx"], c["pos"], c["page"]
+
+            def kern(li, c=c):
+                return sparse_decode_attn(c["idx"], c["q"], c["k"][li],
+                                          c["v"][li], page_size=c["page"],
+                                          pos=c["pos"])
+
+            def plain(li, c=c):
+                return attend_pages(c["q"], c["k"][li], c["v"][li],
+                                    c["idx"], c["pos"], c["page"])
+            b, kv, g, d = q.shape
+            kgs, vgs = ([gather_pages(t[li], idx, page).reshape(b, kv, -1, d)
+                         for li in range(8)] for t in (c["k"], c["v"]))
+            mask = (page_token_positions(idx, page) <= pos).reshape(
+                b, kv, 1, -1)
+            bound, by, work = sparse_bound(c)
+            shape = (f"B={b} KV={kv} G={g} D={d} page={page} "
+                     f"K={idx.shape[2]} S={c['k'].shape[2]} pos={pos}")
+        got = kern(0)
+        torch.cuda.synchronize()
+        err, ok = close_enough(got, plain(0), 1e-2)
+        del got
+        layers = itertools.cycle(range(8))
+
+        def sdpa(q=q, kgs=kgs, vgs=vgs, mask=mask):
+            li = next(layers)
+            F.scaled_dot_product_attention(q, kgs[li], vgs[li],
+                                           attn_mask=mask)
+        p1 = cuda_ms(lambda: plain(next(layers)))
+        k_ms = cuda_ms(lambda: kern(next(layers)))
+        lib_ms = cuda_ms(sdpa)
+        p2 = cuda_ms(lambda: plain(next(layers)))
+        # the card's time a call without the host: 8 calls, one a layer,
+        # captured in a CUDA graph and replayed
+        g_ms = graph_ms(lambda: [kern(li) for li in range(8)]) / 8
+        # the wrapper's host time a call: 50 calls enqueued, no sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for li in range(50):
+            kern(li % 8)
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        # the kernels' own device time a call (the merge pass included)
+        prof = profile_call(lambda: [kern(li % 8) for li in range(10)],
+                            DECODE_KERNELS)
+        # (late in a process it was seen to miss the first of the 10: the
+        # mean over the calls it recorded, split kernel and merge alike)
+        n_main = sum(n for name, n in prof.get("counted_n", {}).items()
+                     if name != "decode_merge_kernel")
+        dev_ms = (sum(prof["counted_ms"].values()) / n_main if n_main >= 5
+                  else None)
+        row = dict(shape=tag, kernel=f"{kind}_decode_attn", dims=shape,
+                   profiled_ms=prof.get("counted_ms"),
+                   ms=k_ms, device_ms=dev_ms, graph_ms=g_ms,
+                   profiled_launches=prof.get("counted_n"), host_ms=host_ms,
+                   plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+                   library_ms=lib_ms,
+                   library="scaled_dot_product_attention over the pages "
+                   "gathered beforehand, gather excluded", work=work,
+                   max_abs_err=err, ok=ok)
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"[{row['kernel']}] bf16 {tag} {shape}: max |err| {err:.3e} "
+            f"(tolerance 0.01 abs + 0.01 rel) {'ok' if ok else 'FAIL'}; "
+            f"kernel {k_ms:.4f} ms (CUDA graph {g_ms:.4f} ms a call; "
+            f"profiler device time {dev} a call; the wrapper's host time "
+            f"{host_ms:.4f} ms a call), plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound:.6f} ms ({by}: {work}),"
+            f" library scaled_dot_product_attention over pages gathered "
+            f"beforehand (gather excluded) {lib_ms:.4f} ms")
+        record.setdefault("decode_rows", []).append(row)
+        rows.append(row)
+        del c, q, kgs, vgs, mask
+        free_cuda()
+    return rows
+
+
+def bitwise_checks(call, n_rows: int) -> tuple[bool, bool]:
+    """``call(None)`` runs a decode kernel on the whole batch, ``call(r)``
+    on row r alone.  Returns (a repeated call is bitwise equal, every row
+    alone is bitwise its row of the batch)."""
+    import torch
+    a, b = call(None), call(None)
+    alone = [call(r) for r in range(n_rows)]
+    torch.cuda.synchronize()
+    return (torch.equal(a, b),
+            all(torch.equal(alone[r], a[r:r + 1]) for r in range(n_rows)))
+
+
+def paged_call(c, li: int = 0):
+    """``call`` of ``bitwise_checks`` for a ``decode_case``."""
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attn
+
+    def call(r):
+        rows = slice(None) if r is None else slice(r, r + 1)
+        return paged_decode_attn(
+            *(c[n][rows].contiguous() for n in ("phys", "idx", "pos", "q")),
+            c["kp"][li], c["vp"][li], page_size=c["page"])
+    return call
+
+
+def sparse_call(c, pos, li: int = 0):
+    """``call`` of ``bitwise_checks`` for a ``sparse_case`` (or any
+    idx/q/k/v), with the frontier ``pos`` (None: every token counts)."""
+    from repro_torch.kernels.sparse_decode_attn import sparse_decode_attn
+
+    def call(r):
+        rows = slice(None) if r is None else slice(r, r + 1)
+        return sparse_decode_attn(
+            c["idx"][rows].contiguous(), c["q"][rows].contiguous(),
+            c["k"][li][rows], c["v"][li][rows], page_size=c["page"],
+            pos=pos)
+    return call
+
+
+def log_bitwise(kernel: str, what: str, repeat: bool, invariant: bool,
+                bad: list) -> None:
+    log(f"[{kernel}] {what}: repeated call bitwise equal: {repeat}; each "
+        f"row alone bitwise equal to its row in the batch: {invariant}")
+    record.setdefault("decode_bitwise", []).append(
+        {"kernel": kernel, "case": what, "repeat": repeat,
+         "batch_invariant": invariant})
+    if not (repeat and invariant):
+        bad.append(f"{kernel} {what} bitwise")
+
+
+def phase_sb_kernels() -> None:
+    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.gather_rows import (gather_rows,
                                                  gather_rows_plain)
     from repro_torch.kernels.sparse_decode_attn import (
         sparse_decode_attn, sparse_decode_attn_plain)
-    from repro_torch.models.sparse_attention import (attend_pages,
-                                                     gather_pages,
-                                                     page_token_positions)
+    from repro_torch.models.sparse_attention import attend_pages
     gen = torch.Generator(device="cuda").manual_seed(3)
     bad = []
-    shape = "B=8 KV=2 G=6 D=128 page=16 K=64 S=1568"
     for kv_dt, q_dt, tol in ((torch.bfloat16, torch.bfloat16, 1e-2),
                              (torch.int8, torch.bfloat16, 1e-2),
                              (torch.float32, torch.float32, 1e-5)):
@@ -1508,6 +1773,8 @@ def phase_sb_kernels() -> None:
                  "tol": tol, "ok": ok})
             if not ok:
                 bad.append(f"sparse_decode_attn {dtype_name(kv_dt)} {what}")
+        log_bitwise("sparse_decode_attn", f"{dtype_name(kv_dt)} K/V, pos",
+                    *bitwise_checks(sparse_call(c, pos), SB_BATCH), bad)
     # gemma-7b's heads (16 KV heads, G=1, head_dim 256): 4 query heads a
     # block, 8 elements a lane; qwen3-moe's (KV=4, G=16) at the
     # single-batch MoE path's cache: 16 query heads split over two blocks
@@ -1541,44 +1808,20 @@ def phase_sb_kernels() -> None:
                 if not ok:
                     bad.append(f"sparse_decode_attn {dtype_name(kv_dt)} "
                                f"{what}")
+            for what, at in ((f"{case} pos", pos), (f"{case} no frontier",
+                                                    None)):
+                log_bitwise("sparse_decode_attn",
+                            f"{shape_tag} {dtype_name(kv_dt)} K/V, {what}",
+                            *bitwise_checks(sparse_call(c, at), SB_BATCH),
+                            bad)
             del c, q, k, v
     # timing at the main path's bf16 cache, rotating over 8 layers
-    # (~200 MB) so pages come from device memory, not L2
-    c = sparse_case(gen, torch.bfloat16, torch.bfloat16, n_layers=8)
-    layers = itertools.cycle(range(8))
-    q, idx, pos, page = c["q"], c["idx"], c["pos"], c["page"]
-    b, kv, g, d = q.shape
-    mask = (page_token_positions(idx, page) <= pos).reshape(b, kv, 1, -1)
-    kgs = [gather_pages(c["k"][li], idx, page).reshape(b, kv, -1, d)
-           for li in range(8)]
-    vgs = [gather_pages(c["v"][li], idx, page).reshape(b, kv, -1, d)
-           for li in range(8)]
-
-    def kern():
-        li = next(layers)
-        sparse_decode_attn(idx, q, c["k"][li], c["v"][li], page_size=page,
-                           pos=pos)
-
-    def plain():
-        li = next(layers)
-        attend_pages(q, c["k"][li], c["v"][li], idx, pos, page)
-
-    def sdpa():
-        li = next(layers)
-        F.scaled_dot_product_attention(q, kgs[li], vgs[li], attn_mask=mask)
-    bound, by, work = sparse_bound(c)
-    p1, k_ms, y_ms, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(sdpa), \
-        cuda_ms(plain)
+    # (~200 MB)
+    row = decode_rows(gen, ["single-batch qwen2-1.5b"])[0]
     record["sparse_decode_attn"] = dict(
-        ms=k_ms, plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
-        library_ms=None, sdpa_pregathered_ms=y_ms, work=work,
-        max_abs_err=record["sparse_checks"][0]["max_abs_err"])
-    log(f"[sparse_decode_attn] bf16 {shape} pos={pos}: kernel {k_ms:.4f} ms, "
-        f"plain {min(p1, p2):.4f} ms, bound {bound:.5f} ms ({by}: {work}); "
-        f"library: none (no single PyTorch call gathers TopK pages and "
-        f"attends over them); yardstick scaled_dot_product_attention over "
-        f"pages gathered beforehand, gather excluded: {y_ms:.4f} ms")
-    del c, kgs, vgs
+        row, max_abs_err=record["sparse_checks"][0]["max_abs_err"])
+    if not row["ok"]:
+        bad.append("sparse_decode_attn timed row")
 
     # gather_rows: the embedding lookups of a decode step and the prefill
     cfg = get_config("qwen2-1.5b")
@@ -1677,7 +1920,7 @@ def phase_sb_serve(state: dict) -> None:
     decode_s, profiled = [], None
     for i in range(SB_GEN - 1):
         if i == 4:
-            profiled = profile_step(eng)
+            profiled = profile_step(eng, DECODE_KERNELS)
             toks.append(eng._last)
             continue
         t0 = time.perf_counter()
@@ -2105,7 +2348,7 @@ def phase_msb_serve(state: dict) -> None:
     decode_s, profiled = [], None
     for i in range(MSB_GEN - 1):
         if i == 4:
-            profiled = profile_step(eng, ("grouped_",))
+            profiled = profile_step(eng, ("grouped_",) + DECODE_KERNELS)
             toks.append(eng._last)
             continue
         t0 = time.perf_counter()
@@ -2382,6 +2625,21 @@ def dispatch_rows_only(src: Path) -> int:
     return 1 if failures or not all(r["ok"] for r in rows) else 0
 
 
+def decode_rows_only(src: Path) -> int:
+    """``--decode-rows``: the card, then every ``decode_shapes`` row of
+    the two decode-attention kernels of the port under ``src``, as one
+    JSON line."""
+    import torch
+    run_phase("1 card", phase_card)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows: list = []
+    run_phase("decode attention rows", lambda: rows.extend(
+        decode_rows(gen, list(decode_shapes()))))
+    print(json.dumps({"src": str(src), "card": record.get("card"),
+                      "decode_rows": rows}, default=str))
+    return 1 if failures or not all(r["ok"] for r in rows) else 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run with ``argv`` (no arguments when None)."""
     import argparse
@@ -2390,6 +2648,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="time only the flash_prefill rows")
     ap.add_argument("--dispatch-rows", action="store_true",
                     help="time only the moe_dispatch_matmul rows")
+    ap.add_argument("--decode-rows", action="store_true",
+                    help="time only the paged_decode_attn and "
+                    "sparse_decode_attn rows")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="checkout whose src/ holds the port")
     args = ap.parse_args(argv or [])
@@ -2414,6 +2675,8 @@ def main(argv: list[str] | None = None) -> int:
         return flash_rows_only(src)
     if args.dispatch_rows:
         return dispatch_rows_only(src)
+    if args.decode_rows:
+        return decode_rows_only(src)
     t0 = time.perf_counter()
     state: dict = {}
     run_phase("1 card", phase_card)

@@ -6,7 +6,8 @@ Replaces the TPU kernel ``src/repro/kernels/sparse_decode_attn.py``
 single-batch engine's sparse decode (``transformer.decode_step``) runs
 it in every layer.  The kernel source is ``csrc/sparse_decode_attn.cu``,
 whose header says what bounds it on the H100 and what its design does
-about that.
+about that; it shares its body (``csrc/decode_split.cuh``) and its split
+rule (``kernels/decode_split.py``) with ``paged_decode_attn``.
 
 Plain versions: :func:`sparse_decode_attn_plain`, a copy of the
 reference's oracle ``kernels/ref.py::sparse_decode_attn_ref`` (every
@@ -30,11 +31,11 @@ from ..models.sparse_attention import (KV_QSCALE, attend_pages,
                                        gather_pages, kv_dequant_f32)
 from . import _build
 from ._build import KV_CODES, Q_CODES
+from .decode_split import HEAD_DIMS, PAGES_PER_SPLIT, workspace
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"sparse_decode_attn": [_P] * 5 + [_I] * 10 + [_F, _P]}
+_SIGNATURES = {"sparse_decode_attn": [_P] * 6 + [_I] * 11 + [_F, _P]}
 _NO_FRONTIER = 2 ** 31 - 1
-HEAD_DIMS = (32, 64, 128, 256)
 
 
 def sparse_decode_attn_plain(idx: torch.Tensor, q: torch.Tensor,
@@ -62,7 +63,8 @@ def sparse_decode_attn(idx: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     ``1 / KV_QSCALE``).  With ``pos=None`` every gathered token counts
     (the TPU kernel); with a host int ``pos``, tokens past it score
     -inf (the single-batch engine's frontier).  Returns [B, KV, G, D] in
-    q's dtype."""
+    q's dtype.  One call is one count in ``launches``, whether or not the
+    merge pass runs."""
     if not q.is_cuda:
         if pos is None:
             return sparse_decode_attn_plain(idx, q, k, v,
@@ -92,14 +94,19 @@ def sparse_decode_attn(idx: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sparse_decode_attn needs contiguous inputs")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must start on 16-byte boundaries")
+    k_sel = idx.shape[2]
     lib = _build.load("sparse_decode_attn", _SIGNATURES)
     out = torch.empty_like(q)
+    ws = workspace(b * kv, k_sel, g, d, q.device)
     kv_scale = 1.0 / KV_QSCALE if k.dtype == torch.int8 else 1.0
     frontier = _NO_FRONTIER if pos is None else int(pos)
     code = lib.sparse_decode_attn(
-        *(_build.ptr(t) for t in tensors), _build.ptr(out), b, s, kv, g, d,
-        idx.shape[2], page_size, frontier, Q_CODES[q.dtype],
-        KV_CODES[k.dtype], kv_scale, _build.stream_ptr(q.device))
+        *(_build.ptr(t) for t in tensors), _build.ptr(out), _build.ptr(ws),
+        b, s, kv, g, d, k_sel, page_size, frontier, PAGES_PER_SPLIT,
+        Q_CODES[q.dtype], KV_CODES[k.dtype], kv_scale,
+        _build.stream_ptr(q.device))
     _build.check(code, "sparse_decode_attn")
     sparse_decode_attn.launches += 1
     return out

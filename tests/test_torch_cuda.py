@@ -58,6 +58,8 @@ def _tol(dtype):
 
 def _decode_inputs(dev, r, kv, g, d, k_sel, page, pool_dtype, seed=0,
                    n_logical=8, n_pages=40):
+    n_logical = max(n_logical, k_sel)
+    n_pages = max(n_pages, n_logical + 1)
     gen = torch.Generator(device=dev).manual_seed(seed)
     q_dtype = torch.float32 if pool_dtype == "float32" else torch.bfloat16
     shape = (n_pages, page, kv, d)
@@ -80,10 +82,15 @@ def _decode_inputs(dev, r, kv, g, d, k_sel, page, pool_dtype, seed=0,
     return phys, idx, pos, q, kp, vp
 
 
+# the first port's four shapes; then qwen3-moe's heads (KV=4, G=16),
+# head_dim 256, and K = 1 (one split), 5 (one ragged split) and 64 (eight
+# splits merged by the second pass)
 @pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("page,r,kv,g,d,k_sel", [
     (8, 4, 2, 2, 32, 4), (16, 3, 2, 6, 128, 5), (16, 3, 1, 1, 64, 2),
-    (4, 4, 2, 2, 32, 4)])
+    (4, 4, 2, 2, 32, 4), (16, 3, 4, 16, 128, 5), (16, 3, 4, 16, 128, 64),
+    (16, 3, 2, 2, 256, 5), (8, 3, 2, 1, 256, 64), (8, 4, 2, 2, 32, 1),
+    (16, 3, 2, 6, 128, 64), (1, 3, 2, 4, 64, 64)])
 def test_paged_decode_kernel_matches_plain(dev, pool_dtype, page, r, kv, g,
                                            d, k_sel):
     phys, idx, pos, q, kp, vp = _decode_inputs(dev, r, kv, g, d, k_sel,
@@ -109,6 +116,65 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         paged_decode_attn(phys, idx, pos, q.transpose(2, 3), kp, vp,
                           page_size=8)
+    # head_dim 48: the kernel is built for 32, 64, 128 and 256 only
+    phys, idx, pos, q, kp, vp = _decode_inputs(dev, 2, 2, 2, 48, 3, 8,
+                                               "float32")
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attn(phys, idx, pos, q, kp, vp, page_size=8)
+
+
+def _sparse_inputs(dev, kv_dtype, b, kv, g, d, s, p, page, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q_dtype = torch.float32 if kv_dtype == "float32" else torch.bfloat16
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev).to(q_dtype)
+    k, v = (kv_quant(torch.randn((b, s, kv, d), generator=gen, device=dev),
+                     _DT[kv_dtype]) for _ in range(2))
+    pos = s // 2 + page // 2
+    sel = select_pages(q, torch.randn((b, s // page, kv, d), generator=gen,
+                                      device=dev), pos // page + 1, p)
+    return q, k, v, sel, pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k_sel", [5, 64])
+def test_decode_kernels_are_bitwise_repeatable(dev, dtype, k_sel):
+    """No atomics and a fixed merge order: a second call is bitwise the
+    first, one split (K=5) or eight (K=64)."""
+    args = _decode_inputs(dev, 4, 2, 6, 128, k_sel, 16, dtype)
+    a = paged_decode_attn(*args, page_size=16)
+    b = paged_decode_attn(*args, page_size=16)
+    q, k, v, sel, pos = _sparse_inputs(dev, dtype, 3, 2, 6, 128, 1024,
+                                       k_sel, 16)
+    c = sparse_decode_attn(sel, q, k, v, page_size=16, pos=pos)
+    d = sparse_decode_attn(sel, q, k, v, page_size=16, pos=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kv,g,k_sel", [(2, 6, 64), (4, 16, 64), (2, 6, 5)])
+def test_decode_kernels_are_batch_invariant(dev, dtype, kv, g, k_sel):
+    """Row r launched alone is bitwise row r of the batch: the split
+    count depends on K alone, never on how many rows share the launch
+    (row 0 is short, the last row padded)."""
+    phys, idx, pos, q, kp, vp = _decode_inputs(dev, 8, kv, g, 128, k_sel,
+                                               16, dtype)
+    batch = paged_decode_attn(phys, idx, pos, q, kp, vp, page_size=16)
+    for r in range(8):
+        one = paged_decode_attn(*(t[r:r + 1].contiguous()
+                                  for t in (phys, idx, pos, q)), kp, vp,
+                                page_size=16)
+        torch.cuda.synchronize()
+        assert torch.equal(one, batch[r:r + 1]), r
+    q, k, v, sel, s_pos = _sparse_inputs(dev, dtype, 8, kv, g, 128, 1024,
+                                         k_sel, 16)
+    batch = sparse_decode_attn(sel, q, k, v, page_size=16, pos=s_pos)
+    for b in range(8):
+        one = sparse_decode_attn(sel[b:b + 1].contiguous(),
+                                 q[b:b + 1].contiguous(), k[b:b + 1],
+                                 v[b:b + 1], page_size=16, pos=s_pos)
+        torch.cuda.synchronize()
+        assert torch.equal(one, batch[b:b + 1]), b
 
 
 def _flash_inputs(dev, dtype, sq, sk, h, kv, d, b=2):
@@ -268,11 +334,16 @@ def test_reduced_moe_engine_card_matches_cpu(dev):
                                    atol=1e-4)
 
 
+# the first port's five shapes; then qwen3-moe's heads (KV=4, G=16),
+# head_dim 256, and K = 1, 5 and 64 (one split, one ragged split, eight)
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("b,kv,g,d,s,p,page", [
     (2, 2, 4, 64, 128, 6, 8), (1, 4, 2, 128, 256, 8, 16),
     (3, 1, 8, 64, 64, 4, 1), (2, 2, 6, 128, 160, 5, 16),
-    (1, 2, 12, 32, 32, 3, 4)])
+    (1, 2, 12, 32, 32, 3, 4), (2, 4, 16, 128, 1024, 64, 16),
+    (2, 4, 16, 128, 256, 5, 16), (2, 2, 2, 256, 1024, 64, 16),
+    (2, 2, 2, 256, 128, 5, 16), (2, 2, 4, 64, 128, 1, 8),
+    (2, 2, 6, 128, 1024, 64, 16), (2, 2, 3, 32, 128, 64, 1)])
 def test_sparse_decode_kernel_matches_plain(dev, kv_dtype, b, kv, g, d, s,
                                             p, page):
     """Both contracts: every gathered token (pos=None, repeated ids
